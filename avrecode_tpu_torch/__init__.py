@@ -8,7 +8,12 @@ the same module paths and function names:
   ops/lane_coder.py     lane-parallel estimator-free range coder; the CUDA
                         kernel in csrc/lane_encode.cu replaces the Pallas
                         `_lane_kernel`
-  parallel/pipeline.py  device_compress / device_compress_corpus
+  ops/estimator.py      est-on-device model + range coder, plain torch
+                        (counterpart of ops/estimator_jax.py)
+  ops/est_coder.py      est kernel wrapper, packing, host finalize; the CUDA
+                        kernel in csrc/est_encode.cu replaces the Pallas
+                        `pallas_coder._kernel`
+  parallel/pipeline.py  device_compress (both paths) / device_compress_corpus
 
 Every public entry takes an explicit `device`.  None or "cuda" needs a
 card and raises without one; the plain torch path runs only when "cpu" is

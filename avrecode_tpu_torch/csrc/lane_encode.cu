@@ -118,6 +118,7 @@ extern "C" int lane_encode_launch(const void* p1, const void* bitw,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* lane_encode_error_string(int err) {
+// cudaGetErrorString for the codes every *_launch function returns
+extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -71,8 +71,10 @@ def load():
     ptr = ctypes.c_void_p
     lib.lane_encode_launch.argtypes = [ptr] * 7 + [ctypes.c_int, ctypes.c_int, ptr]
     lib.lane_encode_launch.restype = ctypes.c_int
-    lib.lane_encode_error_string.argtypes = [ctypes.c_int]
-    lib.lane_encode_error_string.restype = ctypes.c_char_p
+    lib.est_encode_launch.argtypes = [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]
+    lib.est_encode_launch.restype = ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -175,7 +175,7 @@ def lane_encode(p1u16, bitw, lens):
     if err:
         raise RuntimeError(
             f"lane_encode kernel launch failed: cudaError {err} "
-            f"({lib.lane_encode_error_string(err).decode()})"
+            f"({lib.kernel_error_string(err).decode()})"
         )
     lane_encode.launches += 1
     return tok, car, ftok, fcar

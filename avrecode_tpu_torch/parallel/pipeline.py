@@ -1,14 +1,16 @@
 """Compression pipeline with the device entropy stage (PyTorch + CUDA).
 
-Counterpart of avrecode_tpu/parallel/pipeline.py for the lane path
-(substream_bins > 0):
+Counterpart of avrecode_tpu/parallel/pipeline.py:
 
   host   — container demux + slice parse + trace extraction (the shared
            native extractor, or the Python reference parser),
-  device — the lane-parallel estimator-free coder (ops/lane_coder.py: the
-           CUDA kernel on a card, the plain torch version on the CPU) and
-           the on-device finalize,
-  host   — sub-stream envelopes + the v2 container.
+  device — substream_bins > 0: the lane-parallel estimator-free coder
+           (ops/lane_coder.py) and the on-device finalize;
+           substream_bins = 0: the adaptive model and the range coder
+           (ops/est_coder.py), one trace per thread.  The CUDA kernel runs
+           on a card, the plain torch version on the CPU,
+  host   — carry folding (est path), sub-stream envelopes (lane path) and
+           the container (v2 for the lane path, v1 for the est path).
 
 device_compress(data, scope=..., substream_bins=B) produces a container
 BYTE-IDENTICAL to codec.compress(data, scope=..., substream_bins=B).
@@ -21,10 +23,11 @@ import numpy as np
 from avrecode_tpu.codec import _scan_blocks, serialize_container
 from avrecode_tpu.host import native
 from avrecode_tpu.models.h264_model import _make_envelope
-from avrecode_tpu.models.trace import TraceModel
+from avrecode_tpu.models.trace import N_CLS, TraceModel
 from avrecode_tpu.utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
 
 from .. import resolve_device
+from ..ops.est_coder import encode_traces_est, pack_rows
 from ..ops.lane_coder import (
     GROUP_ROWS,
     auto_substream_bins,
@@ -65,8 +68,24 @@ def extract_traces(data, use_native=None, scope="slice", threads=0,
     return sps, pps, blocks, traces, stats
 
 
-def _serialize(scope_id, sps, pps, blocks, traces, envs, substream_bins):
-    finmap = {id(t): envs[i] for i, t in enumerate(traces)}
+def pack_traces(traces, pad_multiple=1):
+    """Pad/stack traces to [S, T] arrays (S padded to a multiple of
+    pad_multiple).  Returns est_coder.from_numpy_traces' argument order
+    (slots, bits, pcabs, limits, valid, cls); None for no traces."""
+    n = len(traces)
+    if n == 0:
+        return None
+    T = max(max(len(t) for t in traces), 1)
+    NS = max(max(len(t.limits) for t in traces), 1)
+    S = -(-n // pad_multiple) * pad_multiple
+    arrays = pack_rows(traces, S, T, NS)
+    assert arrays[5].max(initial=0) < N_CLS, \
+        "key-class id out of mixer weight range"
+    return arrays
+
+
+def _serialize(scope_id, sps, pps, blocks, traces, streams, substream_bins):
+    finmap = {id(t): streams[i] for i, t in enumerate(traces)}
 
     def finisher(t):
         return t if isinstance(t, bytes) else finmap[id(t)]
@@ -85,29 +104,34 @@ def device_compress(data, scope=None, substream_bins=4096, device=None):
 
     substream_bins > 0 (or "auto") selects the lane-parallel estimator-free
     coder: the recorded exact per-bin probabilities drive a bare range
-    coder, one sub-stream per GPU thread.  Output is byte-identical to
-    codec.compress(scope=..., substream_bins=...)."""
+    coder, one sub-stream per GPU thread.
+
+    substream_bins=0 selects the est-on-device path: the device runs the
+    adaptive model itself (counters, mixer, APM) and the range coder, one
+    trace per GPU thread, into a v1 container.
+
+    Output is byte-identical to codec.compress(scope=...,
+    substream_bins=...)."""
     dev = resolve_device(device)
-    if not substream_bins:
-        raise NotImplementedError(
-            "substream_bins=0 (estimator on device) is not ported yet; "
-            "see ROADMAP.md, Queue 2"
-        )
     data = bytes(data)
     if scope is None:
         scope = "gop" if native.available() else "slice"
-    # the lane coder reads only (bit, p1): skip the slot remap pass
+    # the lane coder reads only (bit, p1): skip the slot remap pass, which
+    # only the est path (substream_bins=0) needs
     sps, pps, blocks, traces, _ = extract_traces(
-        data, scope=scope, want_slots=False)
+        data, scope=scope, want_slots=not substream_bins)
     if substream_bins == "auto":
         substream_bins = auto_substream_bins(sum(len(t) for t in traces))
     if not traces:
         from avrecode_tpu.codec import compress
 
         return compress(data, scope=scope, substream_bins=substream_bins)
-    envs = encode_traces_lanes(traces, substream_bins, device=dev)
+    if substream_bins:
+        streams = encode_traces_lanes(traces, substream_bins, device=dev)
+    else:
+        streams = encode_traces_est(traces, device=dev)
     scope_id = SCOPE_SLICE if scope == "slice" else SCOPE_GOP
-    return _serialize(scope_id, sps, pps, blocks, traces, envs,
+    return _serialize(scope_id, sps, pps, blocks, traces, streams,
                       substream_bins)
 
 
@@ -180,8 +204,16 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
     device_compress(f, scope=..., substream_bins=...) per file.
 
     inputs: list of paths or bytes.  Returns list of container bytes.
-    stats (optional dict) receives {'dispatches': N, 'bins': M}."""
+    stats (optional dict) receives {'dispatches': N, 'bins': M}.
+    substream_bins=0 raises ValueError: the corpus path is lane-only, as in
+    the JAX package."""
     dev = resolve_device(device)
+    if not substream_bins:
+        raise ValueError(
+            "device_compress_corpus is lane-parallel only: give "
+            "substream_bins > 0, or call device_compress per file for "
+            "substream_bins=0"
+        )
     datas = [
         open(x, "rb").read() if isinstance(x, str) else bytes(x)
         for x in inputs

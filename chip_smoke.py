@@ -7,7 +7,7 @@ Phases; any failure raises and the script exits non-zero:
   1 device   a CUDA card must be present; prints nvidia-smi's name and
              power limit
   2 build    libavtpu.so (make, g++ only) when missing, and the CUDA
-             kernel from avrecode_tpu_torch/csrc (nvcc, sm_90a)
+             kernels from avrecode_tpu_torch/csrc (nvcc, sm_90a)
   3 kernel   lane_encode (CUDA kernel) vs lane_encode_plain on the same
              card tensors, exact, over random lanes with ragged lens at
              (L, B) in (1, 256), (1000, 4096), (8192, 16384), a carry-stress
@@ -19,6 +19,17 @@ Phases; any failure raises and the script exits non-zero:
   5 full     one full dispatch group, [8192, 16384] lanes tiled from the
              clips' real (bit, p1) traces, kernel vs plain: equal streams,
              and both timed with CUDA events
+  6 kernel   est_encode (CUDA kernel) vs est_encode_plain on the same card
+             tensors, exact: random traces over all key classes, the
+             skewed carry stress, invalid bins inside traces, 4,096 slots
+  7 main     device_compress(substream_bins=0) on the pinned clips at
+             slice and gop scope: byte-identical to native.compress (and
+             to codec.compress for one clip), roundtripping through both
+             decoders; the est kernel must have launched
+  8 full     the clips' slice traces replicated to 1,024 traces in one
+             encode_traces_est call; kernel vs plain on that problem:
+             equal tokens, both timed with CUDA events; and the kernel
+             alone on the longest gop trace
 The last three lines are a JSON line of kernel numbers, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -35,6 +46,7 @@ import torch
 from avrecode_tpu import codec
 from avrecode_tpu.host import native
 from avrecode_tpu_torch.ops import _build
+from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel.pipeline import (
     device_compress, device_compress_corpus)
@@ -43,6 +55,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CLIPS = ["rt_ctr.mkv", "mbaff_b.mkv", "rt_ctr.ts", "rt_ctr.avi",
          "rt_ctr.flv", "rt_ctr.mpg"]
 FULL_L, FULL_B = 8192, 16384  # one full dispatch group at the bench's B
+EST_S = 1024  # traces of the phase-8 est problem
 
 
 def log(*args):
@@ -221,6 +234,134 @@ def phase_full_dispatch(dev, clips, L, B, card):
     return ms, plain
 
 
+def est_problem(kind, S, T, NS, seed):
+    """Est problem (numpy int32 slots, bits, pcabs, limits, valid, cls)
+    from a seed.  "random": cls over all key classes, random halving
+    limits; "skew": tests/test_pallas.py's carry stress (98% ones, one
+    class, limit 0x60); "holes": invalid bins inside every trace.  Row 0
+    has a ragged tail, and every third pcab is 0 (no CABAC input)."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, NS, (S, T))
+    if kind == "skew":
+        bits = rng.random((S, T), dtype=np.float32) < 0.98
+        limits = np.full((S, NS), 0x60)
+        cls = np.zeros((S, NS))
+    else:
+        bits = rng.integers(0, 2, (S, T))
+        limits = rng.integers(0x10, 0x100, (S, NS))
+        cls = rng.integers(0, tec.N_CLS, (S, NS))
+    pcabs = rng.integers(0, 1 << 16, (S, T))
+    pcabs[:, ::3] = 0
+    valid = np.ones((S, T))
+    valid[0, T - T // 3:] = 0
+    if kind == "holes":
+        valid[:, T // 4: T // 4 + 100] = 0
+        valid[1::2, ::5] = 0
+    return slots, bits, pcabs, limits, valid, cls
+
+
+def token_stats(tok, car, count):
+    """(carries, 0xFF bytes) among the emitted tokens."""
+    live = (torch.arange(tok.shape[1], device=tok.device)[None, :]
+            < count[:, None])
+    return int(((car > 0) & live).sum()), int(((tok == 0xFF) & live).sum())
+
+
+def phase_est_kernel_vs_plain(dev, cases):
+    """est_encode vs est_encode_plain on the same tensors; returns the
+    largest absolute difference seen (must be 0)."""
+    worst = 0
+    for kind, S, T, NS in cases:
+        prob = tec.from_numpy_traces(*est_problem(kind, S, T, NS, S + T + NS),
+                                     dev)
+        t0 = time.time()
+        got = tec.est_encode(*prob)
+        torch.cuda.synchronize(dev)
+        t_k = time.time() - t0
+        t0 = time.time()
+        ref = tec.est_encode_plain(*prob)
+        torch.cuda.synchronize(dev)
+        t_p = time.time() - t0
+        err = max_abs_diff(got, ref)
+        worst = max(worst, err)
+        carries, ffs = token_stats(*ref)
+        log(f"est kernel vs plain {kind} S={S} T={T} NS={NS}: "
+            f"max_abs_err={err} carries={carries} ff_bytes={ffs} "
+            f"(first call {t_k:.3f} s, plain {t_p:.1f} s)")
+        if err or not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"est kernel != plain for {kind} S={S} T={T}")
+    return worst
+
+
+def phase_est_main_path(dev, clips):
+    """device_compress(substream_bins=0) on real clips, held to the host."""
+    for k, clip in enumerate(clips):
+        data = open(os.path.join(ROOT, "data", clip), "rb").read()
+        for scope in ("slice", "gop"):
+            t0 = time.time()
+            out = device_compress(data, scope=scope, substream_bins=0,
+                                  device=dev)
+            dt = time.time() - t0
+            if out != native.compress(data, scope=scope):
+                raise AssertionError(f"{clip} {scope}: port != native.compress")
+            if k == 0 and out != codec.compress(data, scope=scope):
+                raise AssertionError(f"{clip} {scope}: port != codec.compress")
+            if codec.decompress(out) != data:
+                raise AssertionError(f"{clip} {scope}: codec.decompress differs")
+            if native.decompress(out, 0) != data:
+                raise AssertionError(f"{clip} {scope}: native.decompress differs")
+            log(f"est main path {clip} {scope}: {len(data)} -> {len(out)} "
+                f"bytes, byte-identical, roundtrips both decoders "
+                f"(device_compress {dt * 1e3:.1f} ms)")
+
+
+def phase_est_full(dev, clips, S, card):
+    """The clips' slice traces, whole, replicated to S traces: one
+    encode_traces_est call, then kernel vs plain on the packed problem."""
+    traces = []
+    for c in clips:
+        data = open(os.path.join(ROOT, "data", c), "rb").read()
+        traces += native.extract(data, "slice", want_slots=True)[3]
+    traces = (traces * -(-S // len(traces)))[:S]
+    n_bins = sum(map(len, traces))
+    T = max(map(len, traces))
+    NS = max(len(t.limits) for t in traces)
+    t0 = time.time()
+    streams = tec.encode_traces_est(traces, dev)
+    e2e = time.time() - t0
+    prob = tec.from_numpy_traces(*tec.pack_rows(traces, S, T, NS), dev)
+    got = tec.est_encode(*prob)
+    k1 = cuda_ms(lambda: tec.est_encode(*prob), 3)
+    ref = []
+    plain = cuda_ms(lambda: ref.append(tec.est_encode_plain(*prob)), 1)
+    k2 = cuda_ms(lambda: tec.est_encode(*prob), 3)
+    err = max_abs_diff(got, ref[0])
+    if err or not all(torch.equal(a, b) for a, b in zip(got, ref[0])):
+        raise AssertionError("est full size: kernel tokens != plain tokens")
+    if streams != tec.finalize_streams(*(t.cpu() for t in ref[0])):
+        raise AssertionError("est full size: encode_traces_est streams differ")
+    ms = (k1 + k2) / 2
+    log(f"est full size [{S}, {T}] NS={NS}: kernel and plain tokens equal, "
+        f"{n_bins} bins -> {sum(map(len, streams))} bytes; "
+        f"encode_traces_est {e2e:.3f} s host clock = {n_bins / e2e:.4g} "
+        f"bins/s end to end")
+    log(f"est full size timing [{S}, {T}] on {card}: kernel {k1:.3f} / "
+        f"{k2:.3f} ms (mean {ms:.3f} ms, {n_bins / (ms / 1e3):.4g} bins/s), "
+        f"plain {plain:.1f} ms ({n_bins / (plain / 1e3):.4g} bins/s)")
+    del got, ref, prob
+
+    data = open(os.path.join(ROOT, "data", "mbaff_b.mkv"), "rb").read()
+    longest = max(native.extract(data, "gop", want_slots=True)[3], key=len)
+    prob = tec.from_numpy_traces(
+        *tec.pack_rows([longest], 1, len(longest), len(longest.limits)), dev)
+    tec.est_encode(*prob)  # warm-up
+    one = cuda_ms(lambda: tec.est_encode(*prob), 3)
+    log(f"est longest gop trace (mbaff_b.mkv, {len(longest)} bins, one "
+        f"thread) on {card}: kernel {one:.3f} ms = "
+        f"{one * 1e3 / len(longest):.3f} us/bin")
+    return err, ms, plain
+
+
 def main():
     # 1 device
     if not torch.cuda.is_available():
@@ -243,7 +384,7 @@ def main():
         raise RuntimeError("libavtpu.so did not load")
     t0 = time.time()
     _build.load()
-    log(f"build: lane_encode kernel {time.time() - t0:.1f} s "
+    log(f"build: lane_encode and est_encode kernels {time.time() - t0:.1f} s "
         f"({_build.library_path().name})")
     log(_build.build_log().strip())
 
@@ -264,6 +405,22 @@ def main():
     # 5 full-size dispatch
     ms, plain_ms = phase_full_dispatch(dev, CLIPS, FULL_L, FULL_B, card)
 
+    # 6 est kernel vs plain on the card
+    est_err = phase_est_kernel_vs_plain(dev, [
+        ("random", 64, 4096, 1024), ("skew", 64, 2048, 64),
+        ("holes", 64, 2048, 512), ("random", 16, 2048, 4096)])
+
+    # 7 est main path; the launch count covers exactly this phase
+    tec.est_encode.launches = 0
+    phase_est_main_path(dev, CLIPS)
+    est_launches = tec.est_encode.launches
+    log(f"est main path: est_encode.launches={est_launches}")
+    if est_launches <= 0:
+        raise AssertionError("est main path never launched the est_encode kernel")
+
+    # 8 est full size
+    full_err, est_ms, est_plain_ms = phase_est_full(dev, CLIPS, EST_S, card)
+
     print(json.dumps({"kernels": [{
         "name": "lane_encode",
         "route": "cuda",
@@ -273,11 +430,21 @@ def main():
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "est_encode",
+        "route": "cuda",
+        "source": "avrecode_tpu_torch/csrc/est_encode.cu",
+        "replaces": "avrecode_tpu/ops/pallas_coder.py:48",
+        "launches": est_launches,
+        "max_abs_err": max(est_err, full_err),
+        "ms": est_ms,
+        "plain_ms": est_plain_ms,
     }]}))
     print(card)
+    # the smoke drives one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -98,8 +98,10 @@ def test_auto_and_unported_options():
     auto = tpipe.device_compress(data, scope="gop", substream_bins="auto",
                                  device="cpu")
     assert auto == codec.compress(data, scope="gop", substream_bins=2048)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.device_compress(data, substream_bins=0, device="cpu")
+    # the corpus path is lane-only, as in the JAX package
+    with pytest.raises(ValueError, match="substream_bins"):
+        tpipe.device_compress_corpus([data], scope="gop", substream_bins=0,
+                                     device="cpu")
 
 
 def test_no_traces_input_is_host_compressed():
