@@ -1,9 +1,11 @@
-"""PyTorch + CUDA port of the avrecode-tpu device entropy stage.
+"""PyTorch + CUDA port of avrecode-tpu, the lossless H.264 recompressor.
 
-The JAX package (`avrecode_tpu`) stays the reference.  This package imports
-its jax-free shared layer (parser, model, demuxers, container: `codec`,
-`host.native`, `models.*`, `utils.*`) and ports only the device layer, with
-the same module paths and function names:
+The JAX package (`avrecode_tpu`) stays the reference.  This package stands
+alone: it imports neither jax nor any module of `avrecode_tpu`.  It keeps
+its own copy of the host layer under the same module paths (`codec`,
+`host/` with the C++ mirror built at first use, `h264/`, `models/`,
+`utils/`, and the tables and host coders in `ops/`), and ports the device
+layer, with the same module paths and function names:
 
   ops/lane_coder.py     lane-parallel estimator-free range coder; the CUDA
                         kernel in csrc/lane_encode.cu replaces the Pallas

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
 `nvcc` compiles csrc/*.cu into one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds), for sm_90a, into
+(no PyTorch headers, so a build takes seconds; one compile job per
+source, run together), for sm_90a, into
 build/torch_kernels/ under the repository root.  The file name carries a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the library already built.  A build or load failure
@@ -22,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0",
 ]
 
 
@@ -71,7 +72,7 @@ def load():
     ptr = ctypes.c_void_p
     lib.lane_encode_launch.argtypes = [ptr] * 7 + [ctypes.c_int, ctypes.c_int, ptr]
     lib.lane_encode_launch.restype = ctypes.c_int
-    lib.est_encode_launch.argtypes = [ptr] * 14 + [ctypes.c_int] * 3 + [ptr]
+    lib.est_encode_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 6 + [ptr]
     lib.est_encode_launch.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

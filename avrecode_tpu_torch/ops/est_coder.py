@@ -1,5 +1,5 @@
 """Est-on-device entropy stage: the adaptive model and the range coder run
-on the device, one serial trace per thread (PyTorch + CUDA).
+on the device, one serial trace per warp (PyTorch + CUDA).
 
 Counterpart of avrecode_tpu/ops/pallas_coder.py.  The kernel emits RAW
 (byte, carry) tokens, one compacted segment per trace; the host folds the
@@ -18,16 +18,84 @@ VMEM and compile-shape workarounds and have no counterpart here: groups are
 cut by a bins budget, each padded to its own longest trace.
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from .. import resolve_device
-from .estimator import (N_CLS, est_tables, finalize_streams, model_probs,
-                        range_encode)
+from ._mix_tables import STRETCH12
+from .estimator import (APM_CELLS, APM_HIST, HALVE_FAST, N_CLS, est_tables,
+                        finalize_streams, model_probs, range_encode)
 from .lane_coder import _upload
 
 GROUP_BINS = 1 << 27  # rows x T per launch, as the lane path's group
-MAX_LIMIT = 0x7FFF  # keeps the counters' << 16 inside int32 on the card
+# keeps the counters' << 16 inside int32 on the card, and a counter inside
+# the 15 bits the kernel's packed estimator row gives it
+MAX_LIMIT = 0x7FFF
+
+# The kernel's shared-memory layout in bytes; csrc/est_encode.cu holds the
+# same numbers and its launcher refuses a size that disagrees with them.
+SMEM_BLOCK_MAX = 227 * 1024  # dynamic shared memory a block may ask for
+SMEM_SM = 228 * 1024  # shared memory of one SM
+SMEM_BLOCK_RESERVED = 1024  # what the card keeps of it for each block
+TABLE_BYTES = 4096 * 2 + 4096 * 2 + 1024 * 2  # stretch, squash, fast stretch
+WARP_FIXED_BYTES = (32 * 16  # one tile of per-bin entries
+                    + N_CLS * 8 * 4  # mixer weights, 8 int32 a class
+                    + -(-N_CLS * APM_HIST * APM_CELLS * 2 // 16) * 16)  # APM
+MAX_WARPS = 8
+
+
+def rows_bytes(NS):
+    """Bytes of one trace's NS packed estimator rows (8 bytes each),
+    rounded up to 16."""
+    return -(-NS * 8 // 16) * 16
+
+
+def est_launch_plan(NS):
+    """How the kernel is launched for NS slots a trace: (warps a block,
+    estimator rows in shared memory?, dynamic shared memory in bytes).
+
+    A warp codes one trace.  Its rows go to shared memory when a block of
+    one warp can hold them beside the fixed state, to global scratch
+    otherwise.  The warp count is the one that puts most traces on an SM
+    at once (the smaller count on a tie, for the finer grain)."""
+    for rows_shared in (True, False):
+        per_warp = WARP_FIXED_BYTES + (rows_bytes(NS) if rows_shared else 0)
+        best = None
+        for warps in range(1, MAX_WARPS + 1):
+            smem = TABLE_BYTES + warps * per_warp
+            if smem > SMEM_BLOCK_MAX:
+                break
+            on_sm = SMEM_SM // (smem + SMEM_BLOCK_RESERVED) * warps
+            if best is None or on_sm > best[0]:
+                best = (on_sm, warps, smem)
+        if best is not None:
+            return best[1], rows_shared, best[2]
+    raise AssertionError("the fixed state of one warp fits a block")
+
+
+@functools.cache
+def fast_stretch_table():
+    """stretch of the fast counters' probability, indexed f0 | f1 << 5:
+    STRETCH12[clamp((f0 << 16) // (f0 + f1), 1, 0xFFFF) >> 4] for counters
+    1 <= f0, f1 < 32 (the model keeps f0 + f1 <= HALVE_FAST + 1); 0 where a
+    counter is 0, which the model never reaches.  int32 [1024]."""
+    if HALVE_FAST + 1 >= 32:
+        raise ValueError("the fast counters no longer fit 5 bits each")
+    tab = np.zeros(1024, np.int32)
+    for f0 in range(1, 32):
+        for f1 in range(1, 32):
+            pf = min(max((f0 << 16) // (f0 + f1), 1), 0xFFFF)
+            tab[f0 | f1 << 5] = STRETCH12[pf >> 4]
+    return tab
+
+
+@functools.cache
+def _kernel_tables(dev):
+    """The kernel's read-only tables on `dev`: est_tables' pair and the
+    fast-counter stretch table."""
+    return (*est_tables(dev), torch.from_numpy(fast_stretch_table()).to(dev))
 
 
 def _check_problem(slots, bits, pcabs, limits, valid, cls):
@@ -91,29 +159,41 @@ def est_encode(slots, bits, pcabs, limits, valid, cls):
     _check_problem(slots, bits, pcabs, limits, valid, cls)
     if dev.type == "cpu":
         return _plain(slots, bits, pcabs, limits, valid, cls)
-    from ._build import load
-
-    lib = load()
     S, T = slots.shape
-    NS = limits.shape[1]
     tok = torch.zeros((S, 2 * T + 2), dtype=torch.int32, device=dev)
     car = torch.zeros_like(tok)
     count = torch.zeros(S, dtype=torch.int32, device=dev)
     if S == 0:
         return tok, car, count
-    tbl, apm_row = est_tables(dev)
-    # per-trace model state, initialised by the kernel
-    est = torch.empty((S, NS, 6), dtype=torch.int32, device=dev)
-    wts = torch.empty((S, N_CLS, 6), dtype=torch.int32, device=dev)
-    apm = torch.empty((S, N_CLS * 5, apm_row.numel()), dtype=torch.int32,
-                      device=dev)
+    _launch(slots, bits, pcabs, limits, valid, cls, tok, car, count)
+    est_encode.launches += 1
+    return tok, car, count
+
+
+est_encode.launches = 0
+
+
+def _launch(slots, bits, pcabs, limits, valid, cls, tok, car, count):
+    """Launch the CUDA kernel on a checked problem (S >= 1) into zeroed
+    tok/car [S, 2T+2] and count [S]; raises if it cannot build or launch."""
+    from ._build import load
+
+    lib = load()
+    dev = slots.device
+    S, T = slots.shape
+    NS = limits.shape[1]
+    tbl, apm_row, pf_tab = _kernel_tables(dev)
+    warps, rows_shared, smem = est_launch_plan(NS)
+    # estimator rows that shared memory cannot hold, initialised by the kernel
+    rows = torch.empty((0 if rows_shared else S, NS), dtype=torch.int64,
+                       device=dev)
     with torch.cuda.device(dev):
         err = lib.est_encode_launch(
             slots.data_ptr(), bits.data_ptr(), pcabs.data_ptr(),
             valid.data_ptr(), limits.data_ptr(), cls.data_ptr(),
-            tbl.data_ptr(), apm_row.data_ptr(), tok.data_ptr(),
-            car.data_ptr(), count.data_ptr(), est.data_ptr(), wts.data_ptr(),
-            apm.data_ptr(), S, T, NS,
+            tbl.data_ptr(), apm_row.data_ptr(), pf_tab.data_ptr(),
+            tok.data_ptr(), car.data_ptr(), count.data_ptr(),
+            rows.data_ptr(), S, T, NS, warps, int(rows_shared), smem,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
@@ -121,11 +201,6 @@ def est_encode(slots, bits, pcabs, limits, valid, cls):
             f"est_encode kernel launch failed: cudaError {err} "
             f"({lib.kernel_error_string(err).decode()})"
         )
-    est_encode.launches += 1
-    return tok, car, count
-
-
-est_encode.launches = 0
 
 
 def pack_rows(traces, S, T, NS):

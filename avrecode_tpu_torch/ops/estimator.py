@@ -22,9 +22,10 @@ import functools
 import numpy as np
 import torch
 
-from avrecode_tpu.models.trace import N_CLS  # model.h::K_NCLS
-
 from .. import resolve_device
+from ..models.h264_model import _apm_row
+from ..models.trace import N_CLS  # model.h::K_NCLS
+from ._mix_tables import SQUASH, STRETCH12
 from .lane_coder import encode_step, flush_state
 
 HALVE_FAST = 0x18  # model v4 fast-counter halving (model.h::kHalveFast)
@@ -38,9 +39,6 @@ W_CLIP = 1 << 24  # mixer weight clip
 
 @functools.cache
 def _tables_np():
-    from avrecode_tpu.models.h264_model import _apm_row
-    from avrecode_tpu.ops._mix_tables import SQUASH, STRETCH12
-
     tbl = np.stack([np.asarray(STRETCH12, np.int32),
                     np.asarray(SQUASH, np.int32)], axis=-1)
     return tbl, np.asarray(_apm_row(), np.int32)

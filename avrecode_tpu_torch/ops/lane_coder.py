@@ -14,7 +14,7 @@ Forms of the per-bin step, all byte-identical:
                        version for CPU tensors
   * lane_encode_plain  a loop over bins, vectorised over lanes (mirror of
                        the JAX lane_encode_scan)
-  * the host encoders  avrecode_tpu/ops/rangecoder.py / host/src/rangecoder.h
+  * the host encoders  ops/rangecoder.py / host/src/rangecoder.h
 
 Each bin emits <= 2 renorm bytes as tok = byte0 | byte1 << 8 | n << 16; car
 is the count of pending 32-bit carries attached to byte0.  finalize_device
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.h264_model import _make_envelope
 
 TOP = 1 << 24
 CHUNK = 256  # bin-axis padding: the packers store bits as 32-bit words
@@ -156,6 +157,9 @@ def lane_encode(p1u16, bitw, lens):
         return lane_encode_plain(p1u16, bitw, lens)
     if dev.type != "cuda":
         raise ValueError(f"lane_encode takes cuda or cpu tensors, not {dev}")
+    if p1u16.data_ptr() % 16:
+        raise ValueError("p1u16 must start on a 16-byte boundary (the kernel "
+                         "copies it in 16-byte pieces)")
     from ._build import load
 
     lib = load()
@@ -535,8 +539,6 @@ def encode_traces_lanes(traces, B, device=None):
     """Device entropy stage: traces -> per-trace sub-stream ENVELOPE bytes
     (the v2 container's stream blob for substream_bins=B), byte-identical
     to RecodeModel(..., substream_bins=B).finish()."""
-    from avrecode_tpu.models.h264_model import _make_envelope
-
     dev = resolve_device(device)
     if not traces:
         return []

@@ -2,7 +2,7 @@
 
 Counterpart of avrecode_tpu/parallel/pipeline.py:
 
-  host   — container demux + slice parse + trace extraction (the shared
+  host   — container demux + slice parse + trace extraction (the
            native extractor, or the Python reference parser),
   device — substream_bins > 0: the lane-parallel estimator-free coder
            (ops/lane_coder.py) and the on-device finalize;
@@ -20,13 +20,11 @@ import concurrent.futures
 
 import numpy as np
 
-from avrecode_tpu.codec import _scan_blocks, serialize_container
-from avrecode_tpu.host import native
-from avrecode_tpu.models.h264_model import _make_envelope
-from avrecode_tpu.models.trace import N_CLS, TraceModel
-from avrecode_tpu.utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
-
 from .. import resolve_device
+from ..codec import _scan_blocks, compress, serialize_container
+from ..host import native
+from ..models.h264_model import _make_envelope
+from ..models.trace import N_CLS, TraceModel
 from ..ops.est_coder import encode_traces_est, pack_rows
 from ..ops.lane_coder import (
     GROUP_ROWS,
@@ -36,6 +34,7 @@ from ..ops.lane_coder import (
     lane_dispatch_compact,
     pack_lanes,
 )
+from ..utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
 
 
 def extract_traces(data, use_native=None, scope="slice", threads=0,
@@ -123,8 +122,6 @@ def device_compress(data, scope=None, substream_bins=4096, device=None):
     if substream_bins == "auto":
         substream_bins = auto_substream_bins(sum(len(t) for t in traces))
     if not traces:
-        from avrecode_tpu.codec import compress
-
         return compress(data, scope=scope, substream_bins=substream_bins)
     if substream_bins:
         streams = encode_traces_lanes(traces, substream_bins, device=dev)
@@ -252,8 +249,6 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
     for data, (sps, pps, blocks, traces, spans, rows) in zip(datas,
                                                              metas_by_idx):
         if not traces:
-            from avrecode_tpu.codec import compress
-
             outs.append(compress(data, scope=scope,
                                  substream_bins=substream_bins))
             continue

@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA GPU (marker `cuda`; they skip
-where there is none).  This file imports no JAX, so it also runs where
-only the port's dependencies are installed:
+where there is none).  This file imports neither JAX nor the JAX package, so it also
+runs where only the port's dependencies are installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -13,8 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from avrecode_tpu_torch import codec
+from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
+from avrecode_tpu_torch.parallel.pipeline import device_compress
+from chip_smoke import EST_CASES, EST_SWEEP
+from chip_smoke import est_problem as _est_problem
+from chip_smoke import lanes as _problem
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 
@@ -28,23 +34,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(kind, L, B, seed):
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        p1 = rng.integers(1, 1 << 16, (L, B))
-        bits = rng.random((L, B)) * 65536 < p1
-    else:  # p1 near 0xFFFF, 30% of bins against it: carries, 0xFF runs
-        p1 = rng.integers(0xFFF0, 1 << 16, (L, B))
-        bits = rng.random((L, B)) > 0.3
-    lens = rng.integers(0, B + 1, L).astype(np.int32)
-    lens[:4] = [B, 0, 1, B - 1]
-    bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
-    return p1.astype(np.uint16), bitw, lens
-
-
+# lane counts that are no multiple of a warp's 16 lanes, widths that are no
+# multiple of the kernel's 128-bin tile; chip_smoke.lanes puts lens of 0, 1,
+# 127, 128, 129 (and the 8-bin group edges) on the first lanes
 @pytest.mark.parametrize("kind, L, B", [
     ("random", 5, 256), ("random", 300, 1024), ("carry", 300, 4096),
     ("random", 130, 16384), ("random", 4, 32768),
+    ("random", 1, 32), ("random", 33, 96), ("random", 70, 160),
+    ("random", 31, 4128), ("carry", 97, 1184), ("random", 64, 128),
+    ("random", 17, 256), ("zero", 40, 512),
 ])
 def test_kernel_matches_plain(cuda, kind, L, B):
     prob = tlc.from_numpy_problem(*_problem(kind, L, B, seed=L + B), cuda)
@@ -69,10 +67,6 @@ def test_kernel_streams_and_overflow_path(cuda):
 
 
 def test_main_path_launches_kernel(cuda):
-    from avrecode_tpu import codec
-    from avrecode_tpu.host import native
-    from avrecode_tpu_torch.parallel.pipeline import device_compress
-
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "rt_ctr.mkv"), "rb").read()
@@ -82,33 +76,21 @@ def test_main_path_launches_kernel(cuda):
     assert out == codec.compress(data, scope="gop", substream_bins=4096)
 
 
-def _est_problem(kind, S, T, NS, seed):
-    """Est problem from a seed: "random" spreads cls over all key classes
-    with random halving limits; "skew" is test_pallas.py's carry stress
-    (98% ones, one class); "holes" adds invalid bins inside traces."""
-    rng = np.random.default_rng(seed)
-    slots = rng.integers(0, NS, (S, T))
-    if kind == "skew":
-        bits = rng.random((S, T)) < 0.98
-        limits = np.full((S, NS), 0x60)
-        cls = np.zeros((S, NS))
-    else:
-        bits = rng.integers(0, 2, (S, T))
-        limits = rng.integers(0x10, 0x100, (S, NS))
-        cls = rng.integers(0, tec.N_CLS, (S, NS))
-    pcabs = rng.integers(0, 1 << 16, (S, T))
-    pcabs[:, ::3] = 0  # no CABAC input
-    valid = np.ones((S, T))
-    valid[0, T - T // 3:] = 0  # ragged tail
-    if kind == "holes":
-        valid[:, T // 4: T // 4 + 100] = 0
-        valid[1::2, ::5] = 0
-    return slots, bits, pcabs, limits, valid, cls
+def test_lane_kernel_rejects_misaligned_p1(cuda):
+    p1u16, bitw, lens = tlc.from_numpy_problem(
+        *_problem("random", 2, 64, seed=1), cuda)
+    flat = torch.zeros(2 * 64 + 1, dtype=torch.uint16, device=cuda)
+    view = flat[1:].view(2, 64)  # contiguous, two bytes off the boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        tlc.lane_encode(view, bitw, lens)
 
 
+# the first est kernel's cases, then chip_smoke's: slot counts on both sides
+# of the shared-memory budget, T under and off the 32-bin tile, valid bins
+# only in a tile's tail, one slot hit by every bin, counters at every limit
 @pytest.mark.parametrize("kind, S, T, NS", [
     ("random", 33, 1024, 300), ("skew", 8, 2048, 64), ("holes", 16, 1024, 128),
-    ("random", 4, 512, 4096),
+    ("random", 4, 512, 4096), *EST_CASES[4:], EST_SWEEP,
 ])
 def test_est_kernel_matches_plain(cuda, kind, S, T, NS):
     prob = tec.from_numpy_traces(*_est_problem(kind, S, T, NS, seed=S + T), cuda)
@@ -122,9 +104,6 @@ def test_est_kernel_matches_plain(cuda, kind, S, T, NS):
 
 
 def test_est_main_path_launches_kernel(cuda):
-    from avrecode_tpu.host import native
-    from avrecode_tpu_torch.parallel.pipeline import device_compress
-
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "rt_ctr.mkv"), "rb").read()

@@ -270,7 +270,9 @@ def test_python_extractor_est_path(tmp_path):
     sps, pps, blocks, traces, stats = tpipe.extract_traces(
         data, use_native=False, scope="slice")
     assert stats["native"] is False and traces
-    assert all(isinstance(t, TraceModel) for t in traces)
+    # the port extracts with its own copy of the trace model
+    assert all(isinstance(t, tpipe.TraceModel) for t in traces)
+    assert tpipe.TraceModel is not TraceModel
     streams = tec.encode_traces_est(traces, device="cpu")
     out = tpipe._serialize(SCOPE_SLICE, sps, pps, blocks, traces, streams, 0)
     assert out == codec.compress(data, scope="slice")

@@ -1,6 +1,6 @@
-"""The PyTorch port stands apart from JAX: no module of avrecode_tpu_torch
-(nor chip_smoke.py) loads jax or the jax-importing modules of the JAX
-package, and a CUDA device is never picked silently."""
+"""The PyTorch port stands alone: no module of avrecode_tpu_torch (nor
+chip_smoke.py) loads jax or any module of the JAX package avrecode_tpu,
+statically or at run time, and a CUDA device is never picked silently."""
 
 import ast
 import os
@@ -21,25 +21,39 @@ MODULES = [
     os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").removesuffix(".__init__")
     for p in PY_FILES
 ]
-# modules of the JAX package that load jax when imported
-JAX_MODULES = ("jax", "avrecode_tpu.ops.lane_coder", "avrecode_tpu.ops.lane_decoder",
-               "avrecode_tpu.ops.pallas_coder", "avrecode_tpu.ops.estimator_jax",
-               "avrecode_tpu.parallel")
+# top-level packages the port must not load: jax, and the whole JAX package
+# (avrecode_tpu_torch shares its prefix, so names are compared by their root)
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "avrecode_tpu")
+
+
+def _forbidden(name):
+    return name.split(".")[0] in FORBIDDEN_ROOTS
+
+
+def test_forbidden_names():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("avrecode_tpu") and _forbidden("avrecode_tpu.utils.bitio")
+    assert not _forbidden("avrecode_tpu_torch")
+    assert not _forbidden("avrecode_tpu_torch.codec")
 
 
 def test_every_port_module_imports_without_jax():
+    """Every port module and every chip_*.py script, imported in a fresh process,
+    leave jax and the JAX package out of sys.modules."""
     code = (
         "import importlib, sys\n"
-        f"for m in {MODULES!r}:\n"
+        f"for m in {MODULES + ['chip_smoke', 'chip_stages', 'chip_variants']!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.startswith({JAX_MODULES!r}))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_ROOTS!r})\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "avrecode_tpu_torch.parallel.pipeline" in MODULES
+    for m in ("parallel.pipeline", "codec", "host.native", "h264.stream",
+              "models.trace", "utils.container", "ops._mix_tables"):
+        assert f"avrecode_tpu_torch.{m}" in MODULES
 
 
 def _imported_names(path):
@@ -54,14 +68,14 @@ def _imported_names(path):
 
 @pytest.mark.parametrize(
     "path",
-    [os.path.join(ROOT, "chip_smoke.py")] + PY_FILES,
+    [os.path.join(ROOT, f"chip_{n}.py")
+     for n in ("smoke", "stages", "variants")] + PY_FILES,
     ids=lambda p: os.path.relpath(p, ROOT),
 )
 def test_no_jax_import_statement(path):
     """Static check, including imports inside functions (which the import
     test above does not execute)."""
-    bad = [n for n in _imported_names(path)
-           if n == "jax" or n.startswith(JAX_MODULES)]
+    bad = [n for n in _imported_names(path) if _forbidden(n)]
     assert not bad, bad
 
 
