@@ -15,7 +15,18 @@ layer, with the same module paths and function names:
   ops/est_coder.py      est kernel wrapper, packing, host finalize; the CUDA
                         kernel in csrc/est_encode.cu replaces the Pallas
                         `pallas_coder._kernel`
-  parallel/pipeline.py  device_compress (both paths) / device_compress_corpus
+  ops/lane_decoder.py   lane-parallel range decoder, the dual of
+                        ops/lane_coder.py; the CUDA kernel in
+                        csrc/lane_decode.cu does what the JAX package's XLA
+                        scan `lane_decode_scan` does
+  parallel/pipeline.py  device_compress (both paths), device_compress_corpus
+                        and device_decompress (host model pass, device
+                        entropy decode, host assembly)
+  graft_entry.py        entry(): the single-device step, lane_encode +
+                        finalize_device on a fixed (8, 256) problem
+
+`tools/gpu_verify.py` runs the byte-identity checks on a card and writes
+GPU_VERIFY.json.
 
 Every public entry takes an explicit `device`.  None or "cuda" needs a
 card and raises without one; the plain torch path runs only when "cpu" is

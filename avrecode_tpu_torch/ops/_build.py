@@ -74,6 +74,9 @@ def load():
     lib.lane_encode_launch.restype = ctypes.c_int
     lib.est_encode_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 6 + [ptr]
     lib.est_encode_launch.restype = ctypes.c_int
+    lib.lane_decode_launch.argtypes = (
+        [ptr, ctypes.c_longlong] + [ptr] * 4 + [ctypes.c_int] * 2 + [ptr])
+    lib.lane_decode_launch.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,6 +14,10 @@ Counterpart of avrecode_tpu/parallel/pipeline.py:
 
 device_compress(data, scope=..., substream_bins=B) produces a container
 BYTE-IDENTICAL to codec.compress(data, scope=..., substream_bins=B).
+
+The decode direction, device_decompress(blob), runs the entropy decode of a
+container on the device (ops/lane_decoder.py) between two host passes, and
+returns bytes identical to codec.decompress(blob).
 """
 
 import concurrent.futures
@@ -21,12 +25,14 @@ import concurrent.futures
 import numpy as np
 
 from .. import resolve_device
-from ..codec import _scan_blocks, compress, serialize_container
+from ..codec import _scan_blocks, compress, decompress, serialize_container
 from ..host import native
-from ..models.h264_model import _make_envelope
+from ..models.h264_model import RecodeModel, _make_envelope
 from ..models.trace import N_CLS, TraceModel
 from ..ops.est_coder import encode_traces_est, pack_rows
+from ..ops import lane_decoder
 from ..ops.lane_coder import (
+    CHUNK,
     GROUP_ROWS,
     auto_substream_bins,
     encode_traces_lanes,
@@ -260,3 +266,160 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
         stats["dispatches"] = len(batcher.pending)
         stats["bins"] = n_bins
     return outs
+
+
+# ------------------------------------------------------------------------
+# Decode direction: device_decompress, the mirror of device_compress.
+#
+# The entropy decode of a recoded container is a serial recurrence through
+# the MODEL (each bin's probability depends on every previously decoded
+# bin via the parser state), so the probability schedule is derived on the
+# host.  The pipeline runs three phases:
+#   A  host model pass: decompress the container with a RECORDING model
+#      that captures each scope unit's per-bin probability schedule
+#      (record_units),
+#   B  device entropy decode: the sub-streams of every unit decode
+#      lane-parallel in one launch of ops/lane_decoder.lane_decode, the
+#      exact integer mirror of the host range decoder (decode_units),
+#   C  host assembly: the container is decoded AGAIN with the
+#      device-produced bins feeding the parser + CABAC re-encoder (no
+#      model arithmetic at all in this pass), producing the output bytes
+#      (assemble_units).
+# The returned file is built from device-decoded bins end to end and is
+# byte-identical to codec.decompress(blob).  This is a capability and
+# verification surface, not the speed path: phase A already contains a
+# full host entropy decode (fundamental, not an implementation artifact).
+
+
+class _RecordingModel(RecodeModel):
+    """RecodeModel('decode') that records the (p1, bit) schedule."""
+
+    def __init__(self, data, substream_bins):
+        super().__init__("decode", data, substream_bins=substream_bins)
+        self.raw = data
+        self.rec_p1s = []
+        self.rec_bits = []
+
+    def get_bit(self, key, pcab=None):
+        self._boundary()
+        e, p1, mixctx = self._prob_update(key, pcab)
+        bit = self.rc.get(p1)
+        self.rec_p1s.append(p1)
+        self.rec_bits.append(bit)
+        self._update_mix(mixctx, p1, bit)
+        self._adapt(key, e, bit)
+        return bit
+
+
+class _FeedModel:
+    """Serves pre-decoded bins to the parser; no model arithmetic."""
+
+    def __init__(self, bits):
+        self.bits = bits
+        self.i = 0
+
+    def get_bit(self, key, pcab=None):
+        b = int(self.bits[self.i])
+        self.i += 1
+        return b
+
+    def get_nnz(self, cat, max_coeff, prior):
+        # bit-count mirror of RecodeModel.get_nnz
+        v = 0
+        for _ in range((max_coeff - 1).bit_length()):
+            v = (v << 1) | self.get_bit(None)
+        return v + 1
+
+
+def record_units(blob):
+    """Phase A: the host model pass.  Returns (output bytes, units): one
+    _RecordingModel per scope unit, in container order, with its probability
+    schedule (rec_p1s), the bins the host decoded (rec_bits) and its
+    sub-stream bytes."""
+    units = []
+
+    def rec_factory(data, B):
+        m = _RecordingModel(data, B)
+        units.append(m)
+        return m
+
+    return decompress(blob, _model_factory=rec_factory), units
+
+
+def pack_units(units):
+    """Every unit's lanes as ONE numpy decode problem: rows are the lanes of
+    all units in order, B is the container's substream_bins, or the longest
+    unit when it is 0 (a v1 unit is one lane of all its bins).
+
+    Returns (stream, offs, p1u16, lens, spans); spans[i] is the (lo, hi)
+    lane range of units[i] (lo == hi for a unit without bins).  A unit with
+    fewer sub-streams than its bins need gets empty ones, which decode as
+    zero bytes, as the host model reads a corrupted envelope."""
+    counts = [len(m.rec_p1s) for m in units]
+    B = max((m.B or n for m, n in zip(units, counts)), default=0)
+    spans, streams = [], []
+    for m, n in zip(units, counts):
+        k = -(-n // B) if n else 0
+        have = list((m.streams if m.B else [m.raw])[:k])
+        streams += have + [b""] * (k - len(have))
+        spans.append((len(streams) - k, len(streams)))
+    L = len(streams)
+    p1u16 = np.zeros((L, -(-max(B, 1) // CHUNK) * CHUNK), np.uint16)
+    lens = np.zeros(L, np.int32)
+    for m, n, (lo, hi) in zip(units, counts, spans):
+        if not n:
+            continue
+        flat = lane_decoder.to_p1u16(np.asarray(m.rec_p1s, np.int64))
+        full = (hi - lo) * B
+        if n < full:
+            flat = np.pad(flat, (0, full - n))
+        p1u16[lo:hi, :B] = flat.reshape(hi - lo, B)
+        lens[lo:hi] = B
+        lens[hi - 1] = n - (hi - lo - 1) * B
+    return (*lane_decoder.pack_streams(streams), p1u16, lens, spans)
+
+
+def split_unit_bits(bitw, lens, spans):
+    """Decoded bit words [L, Bp/32] (numpy) -> each unit's bins as a list
+    of Python ints, the lanes' valid bins in order."""
+    bits = lane_decoder.unpack_bits(bitw)
+    out = []
+    for lo, hi in spans:
+        rows = [bits[l, : lens[l]] for l in range(lo, hi)]
+        out.append(np.concatenate(rows).tolist() if rows else [])
+    return out
+
+
+def decode_units(units, device=None):
+    """Phase B: decode every unit's bins on `device` from its sub-stream
+    bytes and its recorded probability schedule, all units in one
+    lane_decode call.  Returns each unit's bins (a list of ints per
+    unit), which equal its rec_bits."""
+    dev = resolve_device(device)
+    stream, offs, p1u16, lens, spans = pack_units(units)
+    prob = lane_decoder.from_numpy_problem(stream, offs, p1u16, lens, dev)
+    bitw = lane_decoder.lane_decode(*prob)
+    return split_unit_bits(bitw.cpu().numpy(), lens, spans)
+
+
+def assemble_units(blob, unit_bits):
+    """Phase C: decode the container again with the given bins feeding the
+    parser and the CABAC re-encoder; any divergence surfaces as a parse or
+    size error."""
+    it = iter(unit_bits)
+    return decompress(blob, _model_factory=lambda data, B: _FeedModel(next(it)))
+
+
+def device_decompress(blob, device=None):
+    """Decompress a container with the entropy decode executed on `device`
+    (lane-parallel across sub-streams); output is byte-identical to
+    codec.decompress(blob).  Raises if the device decode disagrees with the
+    host model pass (it cannot, short of a hardware fault: the kernel is
+    the exact integer mirror)."""
+    dev = resolve_device(device)
+    blob = bytes(blob)
+    host_out, units = record_units(blob)
+    out = assemble_units(blob, decode_units(units, dev))
+    if out != host_out:
+        raise RuntimeError("device decode diverged from host model pass")
+    return out

@@ -39,6 +39,23 @@ Phases; any failure raises and the script exits non-zero:
              equal tokens, both timed with CUDA events, the kernel's time
              beside its bound; the kernel alone on the longest gop trace
              and on the longest slice trace replicated 1 to 4,096 times
+  9 kernel   lane_decode (CUDA kernel) vs lane_decode_plain on the same card
+             tensors, exact: the phase-3 problems encoded on the card by
+             lane_encode + finalize and decoded again (bits equal to the
+             bits that went in), lane counts off a warp's 16, widths off
+             the 128-bin tile, streams of 0-3 bytes, random bytes with
+             p1 = 0 and 0xFFFF, and lanes of more than 65,536 bins
+  10 main    device_decompress on containers of the six pinned clips (gop
+             scope, B = 4096), and for two of them a v1 container and a
+             slice-scope one with B = 512: equal to the original file and
+             to codec.decompress; the decode kernel must have launched;
+             then the same containers phase by phase: the device's bins
+             equal the host model pass's, and the stage split is printed
+  11 full    phase 5's [8192, 16384] group: its streams through
+             lane_decode give the group's input bits; kernel vs plain,
+             both timed with CUDA events, the kernel's time beside its
+             bound; the longest pinned v1 unit (one lane) timed alone;
+             entry()'s step on the card equals the host finalize
 The last three lines are a JSON line of kernel numbers, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -53,13 +70,17 @@ import time
 import numpy as np
 import torch
 
-from avrecode_tpu_torch import codec
+from avrecode_tpu_torch import codec, graft_entry
 from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.ops import _build
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
+from avrecode_tpu_torch.ops import lane_decoder as tld
+from avrecode_tpu_torch.ops.rangecoder import RangeEncoder
+from avrecode_tpu_torch.parallel import pipeline as tpipe
 from avrecode_tpu_torch.parallel.pipeline import (
-    device_compress, device_compress_corpus, extract_traces)
+    device_compress, device_compress_corpus, device_decompress,
+    extract_traces)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLIPS = ["rt_ctr.mkv", "mbaff_b.mkv", "rt_ctr.ts", "rt_ctr.avi",
@@ -74,6 +95,17 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
 LANE_OPS_PER_BIN = 30  # integer operations of one lane_encode bin
 EST_OPS_PER_BIN = 150  # and of one est_encode bin
+DECODE_OPS_PER_BIN = 20  # and of one lane_decode bin
+# dependent instructions of one lane_decode bin (shift, multiply, compare
+# and select, find leading bit and mask, shift), in cycles as
+# chip_latency.cu reads them, and the clock it ran at: a lane's floor,
+# whatever the lane count
+DECODE_CHAIN_CYCLES = 53
+SM_CLOCK_HZ = 1.98e9
+# (clip, scope, substream_bins) of the phase-10 containers; 0 = v1
+DECODE_CONTAINERS = [(c, "gop", 4096) for c in CLIPS] + [
+    ("rt_ctr.mkv", "gop", 0), ("mbaff_b.mkv", "gop", 0),
+    ("rt_ctr.mkv", "slice", 512), ("mbaff_b.mkv", "slice", 512)]
 
 
 def log(*args):
@@ -283,7 +315,7 @@ def phase_full_dispatch(dev, clips, L, B, card):
         f"{L * B / (ms / 1e3):.4g} bins/s; bound {bound:.3f} ms by {by} "
         f"({n_bytes} bytes), the kernel is at {bound / ms:.1%} of it; peak "
         f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return err, ms, plain, bound, by
+    return err, ms, plain, bound, by, (streams, p1u16, bitw, lens)
 
 
 SWEEP_LIMITS = (0x7FFF, 0x7FFE, 0x4000, 0x1000, 0x100, 0x60, 3, 0)
@@ -490,6 +522,215 @@ def phase_est_full(dev, clips, S, card):
     return err, ms, plain, bound, by
 
 
+def decode_problem(kind, L, B, seed, dev):
+    """(decode problem on the card, bits that must come out or None).
+    "bytes": random stream bytes, sizes 0, 1, 2, 3 first, then random up to
+    B / 2; p1 with 0 and 0xFFFF among them; nothing to invert.  Any other
+    kind: lanes(kind, ...) encoded on the card by lane_encode and the
+    device finalize.  The bin axis keeps its width B (a multiple of 32),
+    so widths off the kernel's 128-bin tile reach the kernel."""
+    if kind == "bytes":
+        rng = np.random.default_rng(seed)
+        sizes = rng.integers(0, B // 2 + 1, L)
+        sizes[:4] = [0, 1, 2, 3][:L]
+        streams = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                   for n in sizes]
+        p1u16 = rng.integers(0, 1 << 16, (L, B)).astype(np.uint16)
+        p1u16[rng.random((L, B), dtype=np.float32) < 0.01] = 0
+        p1u16[rng.random((L, B), dtype=np.float32) < 0.01] = 0xFFFF
+        lens = rng.integers(0, B + 1, L).astype(np.int32)
+        lens[:3] = [B, B - 1, 0][:L]
+        want = None
+    else:
+        p1u16, bitw, lens = lanes(kind, L, B, seed)
+        streams = tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)
+        live = np.arange(B)[None, :] < lens[:, None]
+        # p1 = 0 collapses the encoder's range: its streams do not invert
+        want = None if kind == "zero" else tld.unpack_bits(bitw) * live
+    prob = tld.from_numpy_problem(*tld.pack_streams(streams), p1u16, lens, dev)
+    return prob, want
+
+
+def one_long_lane(n, seed, dev):
+    """One lane of n bins from the host RangeEncoder (the lane encoder
+    stops at 32,768 bins a lane)."""
+    rng = np.random.default_rng(seed)
+    p1 = rng.integers(1, 1 << 16, n)
+    bits = (rng.random(n) * 65536 < p1).astype(np.uint8)
+    enc = RangeEncoder()
+    for b, p in zip(bits.tolist(), p1.tolist()):
+        enc.put(b, p)
+    prob = tld.pack_decode_problem([bytes(enc.finish())], p1[None, :], [n])
+    want = np.zeros((1, prob[2].shape[1]), np.uint8)
+    want[0, :n] = bits
+    return tld.from_numpy_problem(*prob, dev), want
+
+
+def check_decode(label, prob, want):
+    """lane_decode vs lane_decode_plain on one problem, and against the
+    bits that went in where there are any; returns the largest absolute
+    difference of the bit words (must be 0)."""
+    t0 = time.time()
+    got = tld.lane_decode(*prob)
+    torch.cuda.synchronize()
+    t_k = time.time() - t0
+    t0 = time.time()
+    ref = tld.lane_decode_plain(*prob)
+    torch.cuda.synchronize()
+    t_p = time.time() - t0
+    err = max_abs_diff([got], [ref])
+    inverts = want is None or np.array_equal(tld.unpack_bits(got), want)
+    log(f"decode kernel vs plain {label}: max_abs_err={err} ones="
+        f"{int(tld.unpack_bits(ref).sum())} stream_bytes="
+        f"{int(prob[1][-1])} "
+        f"{'' if want is None else f'inverts the encoder: {inverts} '}"
+        f"(first call {t_k:.3f} s, plain {t_p:.1f} s)")
+    if err or not torch.equal(got, ref):
+        raise AssertionError(f"decode kernel != plain for {label}")
+    if not inverts:
+        raise AssertionError(f"decode does not invert the encoder: {label}")
+    return err
+
+
+def phase_decode_kernel_vs_plain(dev, cases):
+    worst = 0
+    for kind, L, B in cases:
+        prob, want = decode_problem(kind, L, B, L + B, dev)
+        worst = max(worst, check_decode(f"{kind} L={L} B={B}", prob, want))
+    prob, want = one_long_lane(70000, 11, dev)
+    worst = max(worst, check_decode("host encoder L=1 B=70000", prob, want))
+    return worst
+
+
+def decompress_stages(blob, dev, timed):
+    """device_decompress phase by phase; timed(name, fn) runs and times each
+    stage.  Returns (output bytes, units, the device's bins per unit)."""
+    host_out, units = timed("A host model pass",
+                            lambda: tpipe.record_units(blob))
+    *arrays, spans = timed("pack", lambda: tpipe.pack_units(units))
+    prob = timed("upload", lambda: tld.from_numpy_problem(*arrays, dev))
+    bitw = timed("kernel", lambda: tld.lane_decode(*prob))
+    words = timed("read-back", lambda: bitw.cpu().numpy())
+    unit_bits = timed("split", lambda: tpipe.split_unit_bits(
+        words, arrays[3], spans))
+    out = timed("C host assembly",
+                lambda: tpipe.assemble_units(blob, unit_bits))
+    if out != host_out:
+        raise AssertionError("the staged decode differs from the host pass")
+    return out, units, unit_bits
+
+
+def phase_decode_main_path(dev, containers):
+    """device_decompress on real containers, held to the original file and
+    to the host decoder; returns the kernel's launches on that path."""
+    made = []
+    for clip, scope, B in containers:
+        data = open(os.path.join(ROOT, "data", clip), "rb").read()
+        blob = (codec.compress(data, scope=scope, substream_bins=B) if B
+                else native.compress(data, scope=scope))
+        made.append((f"{clip} {scope} B={B}", data, blob))
+    tld.lane_decode.launches = 0
+    for label, data, blob in made:
+        t0 = time.time()
+        out = device_decompress(blob, device=dev)
+        dt = time.time() - t0
+        if out != data:
+            raise AssertionError(f"{label}: device_decompress != the file")
+        log(f"decode main path {label}: {len(blob)} -> {len(out)} bytes, "
+            f"equal to the original file (device_decompress {dt:.3f} s)")
+    launches = tld.lane_decode.launches
+    log(f"decode main path: lane_decode.launches={launches}")
+    if launches <= 0:
+        raise AssertionError("device_decompress never launched lane_decode")
+    for label, data, blob in made:
+        if codec.decompress(blob) != data:
+            raise AssertionError(f"{label}: codec.decompress != the file")
+        ms = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize(dev)
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return res
+
+        out, units, unit_bits = decompress_stages(blob, dev, timed)
+        if out != data or unit_bits != [m.rec_bits for m in units]:
+            raise AssertionError(f"{label}: the device's bins differ from "
+                                 f"the host model pass's")
+        counts = [len(m.rec_p1s) for m in units]
+        log(f"decode stages {label}: {len(units)} units, {sum(counts)} bins "
+            f"(longest {max(counts)}), bins equal the recorded bins, "
+            f"codec.decompress equal; ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    return launches
+
+
+def decode_bound(prob):
+    """bound_ms of one lane_decode call from its inputs: the stream bytes,
+    p1, lens and offsets read once, the bit words written once."""
+    stream, offs, p1u16, lens = prob
+    L, Bp = p1u16.shape
+    n_bytes = (int(offs[-1]) + offs.numel() * 8 + L * Bp * 2 + L * 4
+               + L * Bp // 8)
+    n_bins = int(lens.clamp(0, Bp).sum())
+    return (*bound_ms(n_bytes, DECODE_OPS_PER_BIN * n_bins), n_bytes)
+
+
+def phase_decode_full(dev, group, card):
+    """The full dispatch group's streams through lane_decode, then the
+    longest pinned v1 unit alone, then entry()'s step."""
+    streams, p1u16, bitw, lens = group
+    L, B = p1u16.shape
+    prob = tld.from_numpy_problem(*tld.pack_streams(streams), p1u16, lens, dev)
+    got = tld.lane_decode(*prob)  # warm-up
+    if not np.array_equal(got.cpu().numpy(), bitw):
+        raise AssertionError("full group: decoded bits != the input bits")
+    k1 = cuda_ms(lambda: tld.lane_decode(*prob), 5)
+    ref = []
+    plain = cuda_ms(lambda: ref.append(tld.lane_decode_plain(*prob)), 1)
+    k2 = cuda_ms(lambda: tld.lane_decode(*prob), 5)
+    err = max_abs_diff([got], ref)
+    if err or not torch.equal(got, ref[0]):
+        raise AssertionError("full group: decode kernel != plain")
+    ms = (k1 + k2) / 2
+    bound, by, n_bytes = decode_bound(prob)
+    chain = B * DECODE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    log(f"decode full group [{L}, {B}] on {card}: bits equal the group's "
+        f"input bits, kernel = plain at the full group; kernel {k1:.3f} / "
+        f"{k2:.3f} ms (mean {ms:.3f} ms, {L * B / (ms / 1e3):.4g} bins/s), "
+        f"plain {plain:.1f} ms; bound {bound:.3f} ms by {by} ({n_bytes} "
+        f"bytes), the kernel is at {bound / ms:.1%} of it; a lane's chain "
+        f"floor ({B} bins x {DECODE_CHAIN_CYCLES} cycles) {chain:.3f} ms, "
+        f"the kernel is at {chain / ms:.1%} of that")
+    del got, ref, prob
+
+    data = open(os.path.join(ROOT, "data", "mbaff_b.mkv"), "rb").read()
+    _, units = tpipe.record_units(native.compress(data, scope="gop"))
+    longest = max(units, key=lambda m: len(m.rec_p1s))
+    *arrays, _ = tpipe.pack_units([longest])
+    prob = tld.from_numpy_problem(*arrays, dev)
+    tld.lane_decode(*prob)
+    one = cuda_ms(lambda: tld.lane_decode(*prob), 5)
+    n = len(longest.rec_p1s)
+    log(f"decode longest v1 unit (mbaff_b.mkv gop, {n} bins, one thread) on "
+        f"{card}: kernel {one:.3f} ms = {one * 1e6 / n:.1f} ns a bin; chain "
+        f"floor {n * DECODE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.3f} ms")
+
+    step, args = graft_entry.entry(dev)
+    out, nbytes, overflow = step(*args)
+    raw = [t.cpu().numpy() for t in tlc.lane_encode(*args)]
+    want = tlc.finalize_lanes(*raw, args[2].cpu().numpy())
+    out, nbytes = out.cpu().numpy(), nbytes.cpu().numpy()
+    if bool(overflow) or want != [bytes(out[l, : nbytes[l]])
+                                  for l in range(len(want))]:
+        raise AssertionError("entry(): the step's bytes != finalize_lanes")
+    log(f"entry(): step on the card equals finalize_lanes "
+        f"({sum(map(len, want))} bytes in {len(want)} lanes)")
+    return err, ms, plain, bound, by
+
+
 def main():
     # 1 device
     if not torch.cuda.is_available():
@@ -510,7 +751,7 @@ def main():
         host_lib = host.result()
     if host_lib is None or not native.available():
         raise RuntimeError("libavtpu.so was not built (make and g++ needed)")
-    log(f"build: lane_encode and est_encode kernels {t_k:.1f} s "
+    log(f"build: lane_encode, est_encode and lane_decode kernels {t_k:.1f} s "
         f"({_build.library_path().name}); {host_lib.name} ready after "
         f"{time.time() - t0:.1f} s")
     log(_build.build_log().strip())
@@ -531,8 +772,8 @@ def main():
         raise AssertionError("main path never launched the lane_encode kernel")
 
     # 5 full-size dispatch: the kernel against plain at full width and depth
-    full_lane_err, ms, plain_ms, lane_bound, lane_by = phase_full_dispatch(
-        dev, CLIPS, FULL_L, FULL_B, card)
+    (full_lane_err, ms, plain_ms, lane_bound, lane_by,
+     full_group) = phase_full_dispatch(dev, CLIPS, FULL_L, FULL_B, card)
 
     # 6 est kernel vs plain on the card
     est_err = phase_est_kernel_vs_plain(dev, EST_CASES + [EST_SWEEP])
@@ -548,6 +789,21 @@ def main():
     # 8 est full size
     full_err, est_ms, est_plain_ms, est_bound, est_by = phase_est_full(
         dev, CLIPS, EST_S, card)
+
+    # 9 decode kernel vs plain on the card
+    dec_err = phase_decode_kernel_vs_plain(dev, [
+        ("random", 1, 256), ("random", 5, 32), ("random", 33, 96),
+        ("random", 70, 160), ("random", 31, 4128), ("random", 1000, 4096),
+        ("carry", 1000, 4096), ("carry", 97, 1184), ("zero", 40, 512),
+        ("bytes", 50, 1184), ("bytes", 200, 4096)])
+
+    # 10 decode main path; phase_decode_main_path counts the launches of
+    # exactly its device_decompress calls
+    dec_launches = phase_decode_main_path(dev, DECODE_CONTAINERS)
+
+    # 11 decode at full size
+    dec_full_err, dec_ms, dec_plain_ms, dec_bound, dec_by = phase_decode_full(
+        dev, full_group, card)
 
     print(json.dumps({"kernels": [{
         "name": "lane_encode",
@@ -573,6 +829,18 @@ def main():
         "bound_ms": est_bound,
         "bound_by": est_by,
         "library_ms": None,  # nor an adaptive model with a range coder
+    }, {
+        "name": "lane_decode",
+        "route": "cuda",
+        "source": "avrecode_tpu_torch/csrc/lane_decode.cu",
+        "replaces": "avrecode_tpu/ops/lane_decoder.py:80",  # an XLA scan
+        "launches": dec_launches,
+        "max_abs_err": max(dec_err, dec_full_err),
+        "ms": dec_ms,
+        "plain_ms": dec_plain_ms,
+        "bound_ms": dec_bound,
+        "bound_by": dec_by,
+        "library_ms": None,  # nor a range decoder
     }]}))
     print(card)
     # the smoke drives one card, whatever the machine holds

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's two device paths, stage by stage, on
-one GPU.
+"""Where the time goes in the port's device paths, stage by stage, on one
+GPU.
 
     python3 chip_stages.py        # from the repository root, one CUDA card
 
@@ -16,6 +16,9 @@ copy overlaps a kernel).  Not a benchmark: no spread, small pinned clips.
   lane path  lane_streams_device_compact on one full dispatch group
              [8192, 16384] tiled from the clips' real traces: upload,
              kernel, finalize, collect
+  decode     device_decompress(blob) on containers of rt_ctr.mkv and
+             mbaff_b.mkv at gop scope, v2 (B = 4096) and v1: host model
+             pass, pack, upload, kernel, read-back, split, host assembly
 """
 
 import os
@@ -23,11 +26,15 @@ import time
 
 import torch
 
+from avrecode_tpu_torch import codec
+from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline
 from avrecode_tpu_torch.utils.container import SCOPE_GOP, SCOPE_SLICE
-from chip_smoke import CLIPS, FULL_B, FULL_L, ROOT, card_line, log, tiled_problem
+from chip_smoke import (
+    CLIPS, FULL_B, FULL_L, ROOT, card_line, decompress_stages, log,
+    tiled_problem)
 
 RUNS = 3
 
@@ -147,6 +154,29 @@ def lane_stages(dev):
         f"{1 - busy / wall:.1%}")
 
 
+def decode_stages(dev, clip, B):
+    with open(os.path.join(ROOT, "data", clip), "rb") as f:
+        data = f.read()
+    blob = (codec.compress(data, scope="gop", substream_bins=B) if B
+            else native.compress(data, scope="gop"))
+    st = Stages()
+    for _ in range(RUNS):
+        out, units, _ = decompress_stages(blob, dev, st.time)
+        if out != data:
+            raise RuntimeError("the staged decode differs from the file")
+    whole = st.time("device_decompress",
+                    lambda: pipeline.device_decompress(blob, device=dev))
+    if whole != data:
+        raise RuntimeError("device_decompress differs from the file")
+    wall, busy = device_busy_ms(
+        lambda: pipeline.device_decompress(blob, device=dev))
+    counts = [len(m.rec_p1s) for m in units]
+    log(f"decode stages {clip} gop B={B} ({len(units)} units, {sum(counts)} "
+        f"bins, longest {max(counts)}), ms: {st.line()}; profiled call "
+        f"{wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
+        f"{1 - busy / wall:.1%}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_stages.py needs an NVIDIA GPU")
@@ -161,6 +191,9 @@ def main():
         for scope in ("slice", "gop"):
             est_stages(dev, clip, scope)
     lane_stages(dev)
+    for clip in ("rt_ctr.mkv", "mbaff_b.mkv"):
+        for B in (4096, 0):
+            decode_stages(dev, clip, B)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,9 @@ package, on one GPU.
     python3 chip_variants.py NAME=path/to/variant.cu[,-DFLAG...] ...
 
 A variant is any source with the launcher of the kernel it varies:
-`lane_encode_launch` or `est_encode_launch`, with the signature of
-avrecode_tpu_torch/csrc (which of the two is read from NAME: it starts
-with "lane" or "est").  Every variant is built with nvcc (sm_90a), all at
+`lane_encode_launch`, `est_encode_launch` or `lane_decode_launch`, with the
+signature of avrecode_tpu_torch/csrc (which of the three is read from NAME:
+it starts with "lane", "est" or "decode").  Every variant is built with nvcc (sm_90a), all at
 once; its outputs are held against the package's kernel on the same
 tensors (exact), and both are timed with CUDA events, two windows each:
 
@@ -16,6 +16,9 @@ tensors (exact), and both are timed with CUDA events, two windows each:
         carry-stress lanes of 4,096 bins
   est   the clips' longest slice trace alone and 128 times, and the clips'
         slice traces replicated to 1,024
+  decode  the streams of that full dispatch group and of its first 55
+        lanes, 1,000 ragged lanes of random bytes, and one lane of 64,096
+        bins from the host encoder
 
 With no arguments it times the package's kernels alone.  This is a tool for
 kernel work, not a benchmark: one card, no spread.
@@ -32,7 +35,10 @@ from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.ops import _build
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
-from chip_smoke import CLIPS, ROOT, card_line, cuda_ms, lanes, log, tiled_problem
+from avrecode_tpu_torch.ops import lane_decoder as tld
+from chip_smoke import (
+    CLIPS, ROOT, card_line, cuda_ms, decode_problem, lanes, log,
+    one_long_lane, tiled_problem)
 
 PTR = ctypes.c_void_p
 OUT_DIR = os.path.join(ROOT, "build", "variants")
@@ -95,6 +101,24 @@ def est_runner(lib):
     return run
 
 
+def decode_runner(lib):
+    lib.lane_decode_launch.argtypes = (
+        [PTR, ctypes.c_longlong] + [PTR] * 4 + [ctypes.c_int] * 2 + [PTR])
+    lib.lane_decode_launch.restype = ctypes.c_int
+
+    def run(prob, out):
+        stream, offs, p1u16, lens = prob
+        L, Bp = p1u16.shape
+        err = lib.lane_decode_launch(
+            stream.data_ptr(), stream.numel(), offs.data_ptr(),
+            p1u16.data_ptr(), lens.data_ptr(), out[0].data_ptr(), L, Bp,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"lane_decode_launch: cudaError {err}")
+
+    return run
+
+
 def compare(kind, problems, runners, make_out, steps):
     """Run every runner on every problem; the first one is the reference."""
     for label, prob in problems.items():
@@ -122,7 +146,8 @@ def main(argv):
     log(card_line())
     csrc = os.path.join(ROOT, "avrecode_tpu_torch", "csrc")
     variants = {"lane_package": (os.path.join(csrc, "lane_encode.cu"), []),
-                "est_package": (os.path.join(csrc, "est_encode.cu"), [])}
+                "est_package": (os.path.join(csrc, "est_encode.cu"), []),
+                "decode_package": (os.path.join(csrc, "lane_decode.cu"), [])}
     for arg in argv:
         name, spec = arg.split("=", 1)
         src, *flags = spec.split(",")
@@ -146,7 +171,27 @@ def main(argv):
                 torch.empty(L, dtype=torch.int32, device=dev))
 
     compare("lane", problems, lane, lane_out, lambda p: p[0].shape[1])
-    del problems, full
+    del problems
+
+    decode = {n: decode_runner(lib) for n, lib in libs.items()
+              if n.startswith("decode")}
+    streams = tlc.lane_streams_device_compact(*full, dev)
+    problems = {
+        "[8192, 16384]": tld.from_numpy_problem(
+            *tld.pack_streams(streams), full[0], full[2], dev),
+        "[55, 16384]": tld.from_numpy_problem(
+            *tld.pack_streams(streams[:55]), full[0][:55], full[2][:55], dev),
+        "ragged bytes [1000, 4096]": decode_problem(
+            "bytes", 1000, 4096, 3, dev)[0],
+        "host encoder [1, 64096]": one_long_lane(64096, 11, dev)[0],
+    }
+
+    def decode_out(prob):
+        L, Bp = prob[2].shape
+        return (torch.empty((L, Bp // 32), dtype=torch.int32, device=dev),)
+
+    compare("decode", problems, decode, decode_out, lambda p: p[2].shape[1])
+    del problems, full, streams
 
     est = {n: est_runner(lib) for n, lib in libs.items() if n.startswith("est")}
     traces = []

@@ -17,8 +17,11 @@ from avrecode_tpu_torch import codec
 from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
-from avrecode_tpu_torch.parallel.pipeline import device_compress
+from avrecode_tpu_torch.ops import lane_decoder as tld
+from avrecode_tpu_torch.parallel.pipeline import (
+    device_compress, device_decompress)
 from chip_smoke import EST_CASES, EST_SWEEP
+from chip_smoke import decode_problem as _decode_problem
 from chip_smoke import est_problem as _est_problem
 from chip_smoke import lanes as _problem
 
@@ -112,3 +115,72 @@ def test_est_main_path_launches_kernel(cuda):
         out = device_compress(data, scope=scope, substream_bins=0, device=cuda)
         assert tec.est_encode.launches > before
         assert out == native.compress(data, scope=scope)
+
+
+# encoder output of every kind and arbitrary bytes ("bytes": streams of 0-3
+# bytes first, p1 = 0 and 0xFFFF among the bins); lane counts off a warp's
+# 16 lanes, widths off the kernel's 128-bin tile
+@pytest.mark.parametrize("kind, L, B", [
+    ("random", 1, 32), ("random", 5, 256), ("random", 33, 96),
+    ("random", 70, 160), ("carry", 97, 1184), ("random", 300, 1024),
+    ("zero", 40, 512), ("bytes", 16, 128), ("bytes", 50, 1184),
+    ("bytes", 7, 4128),
+])
+def test_decode_kernel_matches_plain(cuda, kind, L, B):
+    prob, want = _decode_problem(kind, L, B, L + B, cuda)
+    before = tld.lane_decode.launches
+    got = tld.lane_decode(*prob)
+    torch.cuda.synchronize()
+    assert tld.lane_decode.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got, tld.lane_decode_plain(*prob))
+    if want is not None:
+        np.testing.assert_array_equal(tld.unpack_bits(got), want)
+
+
+def test_decode_kernel_long_lane_and_unaligned_starts(cuda):
+    """One lane of more than 65,536 bins, and lanes whose streams start at
+    every byte alignment of the concatenated buffer."""
+    rng = np.random.default_rng(4)
+    n = 66000
+    streams = [rng.integers(0, 256, k, dtype=np.uint8).tobytes()
+               for k in (n // 3, 1, 2, 3, 5, 6, 7, 9)]
+    p1 = rng.integers(1, 1 << 16, (len(streams), n))
+    lens = np.array([n] + [400] * (len(streams) - 1), np.int32)
+    prob = tld.from_numpy_problem(
+        *tld.pack_decode_problem(streams, p1, lens), cuda)
+    got = tld.lane_decode(*prob)
+    # the plain loop over 66,000 bins is slow: hold lane 0 to the host
+    # decoder instead, and the short lanes to the plain version
+    from avrecode_tpu_torch.ops.rangecoder import RangeDecoder
+
+    dec = RangeDecoder(streams[0])
+    want = [dec.get(int(p)) for p in p1[0]]
+    bits = tld.unpack_bits(got)
+    assert bits[0, :n].tolist() == want and not bits[:, n:].any()
+    short = tuple(t.clone() for t in prob)
+    short[3][0] = 400
+    ref = tld.unpack_bits(tld.lane_decode_plain(*short))
+    np.testing.assert_array_equal(bits[1:], ref[1:])
+    assert not bits[1:, 400:].any()
+
+
+def test_decode_kernel_rejects_misaligned_p1(cuda):
+    prob, _ = _decode_problem("bytes", 4, 64, 1, cuda)
+    flat = torch.zeros(4 * 64 + 1, dtype=torch.uint16, device=cuda)
+    view = flat[1:].view(4, 64)  # contiguous, two bytes off the boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        tld.lane_decode(prob[0], prob[1], view, prob[3])
+
+
+@pytest.mark.parametrize("scope, B", [("gop", 4096), ("slice", 512),
+                                      ("gop", 0)])
+def test_device_decompress_launches_kernel(cuda, scope, B):
+    if not native.available():
+        pytest.skip("native library not built")
+    data = open(os.path.join(DATA, "rt_ctr.mkv"), "rb").read()
+    blob = (codec.compress(data, scope=scope, substream_bins=B) if B
+            else native.compress(data, scope=scope))
+    before = tld.lane_decode.launches
+    assert device_decompress(blob, device=cuda) == data
+    assert tld.lane_decode.launches == before + 1

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of avrecode_tpu_torch (nor
-chip_smoke.py) loads jax or any module of the JAX package avrecode_tpu,
-statically or at run time, and a CUDA device is never picked silently."""
+"""The PyTorch port stands alone: no module of avrecode_tpu_torch (nor a
+chip_*.py script, nor tools/gpu_verify.py) loads jax or any module of the
+JAX package avrecode_tpu, statically or at run time, and a CUDA device is
+never picked silently."""
 
 import ast
 import os
@@ -24,6 +25,10 @@ MODULES = [
 # top-level packages the port must not load: jax, and the whole JAX package
 # (avrecode_tpu_torch shares its prefix, so names are compared by their root)
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "avrecode_tpu")
+# the port's scripts outside the package: (module name, path)
+SCRIPTS = [(f"chip_{n}", os.path.join(ROOT, f"chip_{n}.py"))
+           for n in ("smoke", "stages", "variants")]
+SCRIPTS.append(("tools.gpu_verify", os.path.join(ROOT, "tools", "gpu_verify.py")))
 
 
 def _forbidden(name):
@@ -38,11 +43,11 @@ def test_forbidden_names():
 
 
 def test_every_port_module_imports_without_jax():
-    """Every port module and every chip_*.py script, imported in a fresh process,
-    leave jax and the JAX package out of sys.modules."""
+    """Every port module and every script of the port, imported in a fresh
+    process, leave jax and the JAX package out of sys.modules."""
     code = (
         "import importlib, sys\n"
-        f"for m in {MODULES + ['chip_smoke', 'chip_stages', 'chip_variants']!r}:\n"
+        f"for m in {MODULES + [m for m, _ in SCRIPTS]!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_ROOTS!r})\n"
         "print(bad)\n"
@@ -52,7 +57,8 @@ def test_every_port_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     for m in ("parallel.pipeline", "codec", "host.native", "h264.stream",
-              "models.trace", "utils.container", "ops._mix_tables"):
+              "models.trace", "utils.container", "ops._mix_tables",
+              "ops.lane_decoder", "graft_entry"):
         assert f"avrecode_tpu_torch.{m}" in MODULES
 
 
@@ -68,8 +74,7 @@ def _imported_names(path):
 
 @pytest.mark.parametrize(
     "path",
-    [os.path.join(ROOT, f"chip_{n}.py")
-     for n in ("smoke", "stages", "variants")] + PY_FILES,
+    [p for _, p in SCRIPTS] + PY_FILES,
     ids=lambda p: os.path.relpath(p, ROOT),
 )
 def test_no_jax_import_statement(path):
@@ -96,7 +101,7 @@ def test_resolve_device_picks_cuda_when_present(monkeypatch):
 def test_pipeline_entries_raise_without_card(monkeypatch):
     from avrecode_tpu_torch.ops.lane_coder import encode_traces_lanes
     from avrecode_tpu_torch.parallel.pipeline import (
-        device_compress, device_compress_corpus)
+        device_compress, device_compress_corpus, device_decompress)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -105,6 +110,8 @@ def test_pipeline_entries_raise_without_card(monkeypatch):
         device_compress_corpus([b"not a video"], device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         encode_traces_lanes([], 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_decompress(b"not a container")
 
 
 def test_version():
