@@ -11,6 +11,7 @@ versions.
 """
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -50,17 +51,28 @@ def library_path():
     return BUILD_DIR / f"libavtpu_torch_{h.hexdigest()[:16]}.so"
 
 
-@functools.cache
-def load():
-    """Build (if needed) and load the kernel library; returns the CDLL with
-    argtypes set.  The compiler's log (ptxas register and spill counts)
-    is kept beside the library as <name>.log."""
+def _compile(out):
+    """Run nvcc on the sources into `out`; returns (command, result)."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, _sources())]
+    return cmd, subprocess.run(cmd, capture_output=True, text=True)
+
+
+def build():
+    """Build the library if it is not built yet; returns its path.  Safe
+    against several processes at once (ranks, test workers): one compiles
+    under a file lock, to a temporary name that is then renamed into place,
+    and the others wait and find the result.  The compiler's log (ptxas
+    register and spill counts) is kept beside the library as <name>.log."""
     so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():  # built while this process waited
+            return so
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        cmd, res = _compile(tmp)
         so.with_suffix(".log").write_text(res.stdout + res.stderr)
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -68,6 +80,14 @@ def load():
                 f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
             )
         os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def load():
+    """Build (if needed) and load the kernel library; returns the CDLL with
+    argtypes set."""
+    so = build()
     lib = ctypes.CDLL(str(so))
     ptr = ctypes.c_void_p
     lib.lane_encode_launch.argtypes = [ptr] * 7 + [ctypes.c_int, ctypes.c_int, ptr]

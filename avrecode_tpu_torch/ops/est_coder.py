@@ -258,9 +258,15 @@ def encode_traces_est(traces, device=None):
         prob = from_numpy_traces(*pack_rows(ts, len(ts), T, NS), dev)
         pending.append((grp, est_encode(*prob)))
     streams = [None] * len(traces)
-    for grp, (tok, car, count) in pending:
-        count = count.cpu()
-        M = int(count.max())
-        for i, s in zip(grp, finalize_streams(tok[:, :M], car[:, :M], count)):
+    for grp, raw in pending:
+        for i, s in zip(grp, est_collect(*raw)):
             streams[i] = s
     return streams
+
+
+def est_collect(tok, car, count):
+    """Read one est_encode result back, cut to its longest token segment,
+    and finalize it on the host -> per-trace stream bytes."""
+    count = count.cpu()
+    M = int(count.max()) if count.numel() else 0
+    return finalize_streams(tok[:, :M], car[:, :M], count)

@@ -236,7 +236,12 @@ def encode_slices(slots, bits, pcabs, limits, valid, cls=None, device=None):
     slots, bits, pcabs, limits, valid, cls = map(
         t, (slots, bits, pcabs, limits, valid, cls))
     p1s = model_probs(slots, bits, pcabs, limits, cls, valid)
-    streams = finalize_streams(*range_encode(bits, p1s, valid))
+    return pack_stream_rows(finalize_streams(*range_encode(bits, p1s, valid)))
+
+
+def pack_stream_rows(streams):
+    """Per-trace stream bytes -> encode_slices' batched form: numpy (bytes
+    uint8 [S, W] zero-padded to the longest stream, n_bytes int32 [S])."""
     n_bytes = np.array([len(b) for b in streams], np.int32)
     out = np.zeros((len(streams), max(n_bytes, default=0)), np.uint8)
     for s, b in enumerate(streams):

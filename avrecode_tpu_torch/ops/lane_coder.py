@@ -384,26 +384,47 @@ def max_bytes(Bp, bits_per_byte=4):
     return -(-Bp // bits_per_byte // 8) * 8 + 8
 
 
+def lane_launch_compact(p1u16, bitw, lens, device=None):
+    """Launch phase: upload and encode every group of GROUP_ROWS lane rows
+    on the current stream of `device`, without waiting for the device.
+    Returns one (rows, lens, raw tokens) handle a group for
+    lane_finalize_launched."""
+    dev = resolve_device(device)
+    L, Bp = p1u16.shape
+    if Bp > MAX_B:
+        raise ValueError(f"B={Bp} > {MAX_B} overflows 16-bit carry counts")
+    launched = []
+    for lo in range(0, L, GROUP_ROWS):
+        hi = min(lo + GROUP_ROWS, L)
+        raw = lane_encode(*(_upload(a[lo:hi], dev) for a in (p1u16, bitw, lens)))
+        launched.append((hi - lo, lens[lo:hi], raw))
+    return launched
+
+
+def lane_finalize_launched(launched, bits_per_byte=4):
+    """Finalize phase: finalize_device on every launched group, on the
+    tokens' device and the current stream.  Returns the pending handles
+    lane_collect reads back.  (The finalize's ripple loop reads one flag
+    per pass, so this waits for the group's kernel; launch every group, and
+    every shard of a mesh, before finalizing any.)
+
+    bits_per_byte sets the read-back bound (max_bytes); a group with a
+    lane past it is finalized exactly on the host from the same tokens."""
+    return [
+        (n, glens, (*finalize_device(*raw, max_bytes(raw[0].shape[1],
+                                                     bits_per_byte)), raw))
+        for n, glens, raw in launched
+    ]
+
+
 def lane_dispatch_compact(p1u16, bitw, lens, device=None, bits_per_byte=4):
     """Dispatch phase of lane_streams_device_compact: upload, encode and
     finalize every group of GROUP_ROWS lane rows, and return the pending
     handles without reading the bytes back, so callers overlap host work
     (extraction/packing of the next file) with device work, then drain with
-    lane_collect.  (The finalize's ripple loop reads one flag per pass.)
-
-    bits_per_byte sets the read-back bound (max_bytes); a group with a
-    lane past it is finalized exactly on the host from the same tokens."""
-    dev = resolve_device(device)
-    L, Bp = p1u16.shape
-    if Bp > MAX_B:
-        raise ValueError(f"B={Bp} > {MAX_B} overflows 16-bit carry counts")
-    M = max_bytes(Bp, bits_per_byte)
-    pending = []
-    for lo in range(0, L, GROUP_ROWS):
-        hi = min(lo + GROUP_ROWS, L)
-        raw = lane_encode(*(_upload(a[lo:hi], dev) for a in (p1u16, bitw, lens)))
-        pending.append((hi - lo, lens[lo:hi], (*finalize_device(*raw, M), raw)))
-    return pending
+    lane_collect."""
+    return lane_finalize_launched(
+        lane_launch_compact(p1u16, bitw, lens, device), bits_per_byte)
 
 
 def lane_collect(pending):
@@ -535,13 +556,24 @@ def pack_lanes(traces, B):
     return (*pack_compact(bitp1, lens, pad_lanes=1), spans)
 
 
-def encode_traces_lanes(traces, B, device=None):
+def encode_traces_lanes(traces, B, device=None, encode_fn=None):
     """Device entropy stage: traces -> per-trace sub-stream ENVELOPE bytes
     (the v2 container's stream blob for substream_bins=B), byte-identical
-    to RecodeModel(..., substream_bins=B).finish()."""
-    dev = resolve_device(device)
+    to RecodeModel(..., substream_bins=B).finish().
+
+    encode_fn overrides the coder (a mesh-sharded one, see
+    parallel/pipeline._mesh_lane_encoder): it takes the compact lane
+    problem (p1u16, bitw, lens) as numpy arrays and returns every lane's
+    stream bytes, as lane_streams_device_compact does on one device.  It
+    names its own devices, so it is not given together with `device`."""
+    if encode_fn is not None and device is not None:
+        raise ValueError("give encode_fn or device, not both")
+    dev = None if encode_fn is not None else resolve_device(device)
     if not traces:
         return []
     p1u16, bitw, lens, spans = pack_lanes(traces, B)
-    streams = lane_streams_device_compact(p1u16, bitw, lens, dev)
+    if encode_fn is not None:
+        streams = encode_fn(p1u16, bitw, lens)
+    else:
+        streams = lane_streams_device_compact(p1u16, bitw, lens, dev)
     return [_make_envelope(streams[lo:hi]) for lo, hi in spans]

@@ -15,6 +15,19 @@ Counterpart of avrecode_tpu/parallel/pipeline.py:
 device_compress(data, scope=..., substream_bins=B) produces a container
 BYTE-IDENTICAL to codec.compress(data, scope=..., substream_bins=B).
 
+The JAX package expresses two shapes of parallelism with one Mesh; the port
+uses PyTorch's idiom for each:
+
+  one process, several devices  device_compress(mesh=...): the mesh is a
+           tuple of torch.devices (parallel/mesh.py), the lane rows or the
+           traces are cut into contiguous shards, one a device, and no
+           collective is needed.  Unlike the JAX package, which runs its
+           XLA scan under a mesh, every shard here launches the CUDA kernel.
+  several processes, one rank each  multichip_step: the SPMD function every
+           rank of a torch.distributed group calls on its own rows, with the
+           billing all_reduce (parallel/ranks.py and parallel/multihost.py
+           hold the rest).
+
 The decode direction, device_decompress(blob), runs the entropy decode of a
 container on the device (ops/lane_decoder.py) between two host passes, and
 returns bytes identical to codec.decompress(blob).
@@ -23,13 +36,22 @@ returns bytes identical to codec.decompress(blob).
 import concurrent.futures
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..codec import _scan_blocks, compress, decompress, serialize_container
 from ..host import native
 from ..models.h264_model import RecodeModel, _make_envelope
 from ..models.trace import N_CLS, TraceModel
-from ..ops.est_coder import encode_traces_est, pack_rows
+from ..ops.est_coder import (
+    encode_traces_est,
+    est_collect,
+    est_encode,
+    from_numpy_traces,
+    pack_rows,
+)
+from ..ops.estimator import pack_stream_rows
 from ..ops import lane_decoder
 from ..ops.lane_coder import (
     CHUNK,
@@ -38,9 +60,18 @@ from ..ops.lane_coder import (
     encode_traces_lanes,
     lane_collect,
     lane_dispatch_compact,
+    lane_finalize_launched,
+    lane_launch_compact,
     pack_lanes,
 )
 from ..utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
+from .mesh import check_mesh, make_mesh, on_shard, shard_ranges, shard_streams
+from .ranks import collective_device, rank_device
+
+__all__ = [
+    "device_compress", "device_compress_corpus", "device_decompress",
+    "extract_traces", "make_mesh", "multichip_step", "pack_traces",
+]
 
 
 def extract_traces(data, use_native=None, scope="slice", threads=0,
@@ -101,23 +132,93 @@ def _serialize(scope_id, sps, pps, blocks, traces, streams, substream_bins):
     )
 
 
-def device_compress(data, scope=None, substream_bins=4096, device=None):
-    """Full compression with the device entropy stage on `device`.
+def _mesh_lane_encoder(mesh):
+    """Lane-sharded encode_fn for ops.lane_coder.encode_traces_lanes: lanes
+    (sub-streams) are independent by format, so multi-device compression is
+    the [L, B] lane axis cut into one contiguous shard a mesh entry, with
+    no collective.
+
+    Every non-empty shard is uploaded to its device and coded there by
+    lane_encode, each on a stream of its own, before any shard is
+    finalized (the finalize waits for its shard's kernel); then every shard
+    is finalized on its device, and all are read back in order."""
+    mesh = check_mesh(mesh)
+
+    def encode(p1u16, bitw, lens):
+        work = [
+            (dev, stream, lo, hi)
+            for dev, stream, (lo, hi) in zip(
+                mesh, shard_streams(mesh), shard_ranges(p1u16.shape[0],
+                                                        len(mesh)))
+            if hi > lo
+        ]
+        launched = []
+        for dev, stream, lo, hi in work:
+            with on_shard(stream):
+                launched.append(lane_launch_compact(
+                    p1u16[lo:hi], bitw[lo:hi], lens[lo:hi], dev))
+        pending = []
+        for (_, stream, _, _), handles in zip(work, launched):
+            with on_shard(stream):
+                pending.append(lane_finalize_launched(handles))
+        streams = []
+        for (_, stream, _, _), handles in zip(work, pending):
+            with on_shard(stream):
+                streams.extend(lane_collect(handles))
+        return streams
+
+    return encode
+
+
+def _mesh_est_streams(traces, mesh):
+    """Est path under a mesh: pack_traces' [S, T] problem, S padded to the
+    mesh, cut into one contiguous shard of traces a mesh entry; each
+    non-empty shard runs est_encode on its device and stream, and all are
+    read back and finalized in order.  (est_encode reads its range-check
+    flag before it launches, so a shard's kernel runs while the next shard
+    uploads.)"""
+    mesh = check_mesh(mesh)
+    n = len(mesh)
+    arrays = pack_traces(traces, pad_multiple=n)
+    per = arrays[0].shape[0] // n
+    work = []
+    for i, (dev, stream) in enumerate(zip(mesh, shard_streams(mesh))):
+        lo, hi = i * per, min((i + 1) * per, len(traces))  # padding rows cut
+        if hi > lo:
+            with on_shard(stream):
+                prob = from_numpy_traces(*(a[lo:hi] for a in arrays), dev)
+                work.append((stream, est_encode(*prob)))
+    streams = []
+    for stream, raw in work:
+        with on_shard(stream):
+            streams.extend(est_collect(*raw))
+    return streams
+
+
+def device_compress(data, mesh=None, scope=None, substream_bins=4096,
+                    device=None):
+    """Full compression with the device entropy stage on `device`, or
+    sharded over `mesh` (parallel/mesh.make_mesh; not both).
 
     scope: "gop" (default with native extraction; best ratio, GOP-parallel)
     or "slice" (finest parallel grain).
 
     substream_bins > 0 (or "auto") selects the lane-parallel estimator-free
     coder: the recorded exact per-bin probabilities drive a bare range
-    coder, one sub-stream per GPU thread.
+    coder, one sub-stream per GPU thread; a mesh shards the lane axis.
 
     substream_bins=0 selects the est-on-device path: the device runs the
     adaptive model itself (counters, mixer, APM) and the range coder, one
-    trace per GPU thread, into a v1 container.
+    trace per warp, into a v1 container; a mesh shards the traces.
 
     Output is byte-identical to codec.compress(scope=...,
-    substream_bins=...)."""
-    dev = resolve_device(device)
+    substream_bins=...), with any mesh or none."""
+    if mesh is not None and device is not None:
+        raise ValueError("give mesh or device, not both")
+    if mesh is not None:
+        mesh = check_mesh(mesh)
+    else:
+        dev = resolve_device(device)
     data = bytes(data)
     if scope is None:
         scope = "gop" if native.available() else "slice"
@@ -130,7 +231,13 @@ def device_compress(data, scope=None, substream_bins=4096, device=None):
     if not traces:
         return compress(data, scope=scope, substream_bins=substream_bins)
     if substream_bins:
-        streams = encode_traces_lanes(traces, substream_bins, device=dev)
+        if mesh is not None:
+            streams = encode_traces_lanes(
+                traces, substream_bins, encode_fn=_mesh_lane_encoder(mesh))
+        else:
+            streams = encode_traces_lanes(traces, substream_bins, device=dev)
+    elif mesh is not None:
+        streams = _mesh_est_streams(traces, mesh)
     else:
         streams = encode_traces_est(traces, device=dev)
     scope_id = SCOPE_SLICE if scope == "slice" else SCOPE_GOP
@@ -266,6 +373,37 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
         stats["dispatches"] = len(batcher.pending)
         stats["bins"] = n_bins
     return outs
+
+
+def multichip_step(slots, bits, pcabs, limits, valid, cls=None, device=None,
+                   group=None):
+    """One sharded est step with the cross-rank billing collective: the
+    SPMD function every rank of the torch.distributed group calls with the
+    WHOLE [S, T] problem (numpy).  The rank takes its contiguous
+    S / world rows, runs the est stage on its device (None: the rank's own
+    card, ranks.rank_device; the est_encode kernel on a card, its plain
+    version on the CPU) and returns (out, lens, total): its rows in
+    ops/estimator.encode_slices' form, and total = all_reduce(sum(lens))
+    over the group, the same int on every rank.
+
+    The reduction's operand is one int64: on the card when the group's
+    backend is nccl, on the CPU (gloo) otherwise."""
+    dev = rank_device(device)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    S = np.shape(slots)[0]
+    if S % world:
+        raise ValueError(f"S={S} traces do not divide over {world} ranks")
+    if cls is None:
+        cls = np.zeros_like(limits)
+    lo, hi = rank * (S // world), (rank + 1) * (S // world)
+    prob = from_numpy_traces(
+        *(np.asarray(a)[lo:hi] for a in (slots, bits, pcabs, limits, valid,
+                                         cls)), dev)
+    out, lens = pack_stream_rows(est_collect(*est_encode(*prob)))
+    total = torch.tensor([int(lens.sum())], dtype=torch.int64,
+                         device=collective_device(group, dev))
+    dist.all_reduce(total, group=group)
+    return out, lens, int(total)
 
 
 # ------------------------------------------------------------------------

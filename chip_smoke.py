@@ -56,8 +56,32 @@ Phases; any failure raises and the script exits non-zero:
              both timed with CUDA events, the kernel's time beside its
              bound; the longest pinned v1 unit (one lane) timed alone;
              entry()'s step on the card equals the host finalize
+  12 mesh    device_compress(mesh=make_mesh(n, device=dev)) for n in
+             (1, 2, 4, 7) on the six pinned clips (gop scope, B = 4096):
+             equal to the call without a mesh and to codec.compress,
+             roundtripping; the est path with n = 4 on two clips equal to
+             native.compress; sharded decode_streams_lanes equal to the
+             unsharded call; every non-empty shard launched its kernel
+             once.  Then phase 5's [8192, 16384] group through the mesh
+             encoder with n = 4: streams equal to the single launch's, the
+             whole call on the host clock and the kernels by CUDA events
+             beside the unsharded call's, and the stage split of both.
+             Where the machine has more than one card, also make_mesh()
+             over the distinct cards
+  13 ranks   dryrun_multichip(4) on the card (its own asserts);
+             multichip_step over 2 ranks equal to the single-process est
+             result on rt_ctr.mkv's slice traces; 2 ranks under
+             init_distributed running compress_sharded / stitch and
+             decompress_sharded / stitch_decompressed on mbaff_b.mkv.
+             Prints the backend, the compute mode, and the time of
+             start-up, work and collectives apart; every rank launched
+             its kernel
+  14 cli     python -m avrecode_tpu_torch roundtrip, then compress with
+             --hosts 2 and decompress: exit codes 0, bytes equal
 The last three lines are a JSON line of kernel numbers, the card's name
-and power limit, and {"ok": true, "device": {...}}.
+and power limit, and {"ok": true, "device": {...}}.  A kernel's `launches`
+there is the sum over the main paths that run it (`launches_by_path`), each
+counted from 0 just before the path to just after it.
 """
 
 import concurrent.futures
@@ -65,6 +89,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,11 +101,14 @@ from avrecode_tpu_torch.ops import _build
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.ops import lane_decoder as tld
+from avrecode_tpu_torch.ops.estimator import stream_bytes
 from avrecode_tpu_torch.ops.rangecoder import RangeEncoder
+from avrecode_tpu_torch.parallel import mesh as tmesh
+from avrecode_tpu_torch.parallel import multihost, ranks
 from avrecode_tpu_torch.parallel import pipeline as tpipe
 from avrecode_tpu_torch.parallel.pipeline import (
     device_compress, device_compress_corpus, device_decompress,
-    extract_traces)
+    extract_traces, make_mesh)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLIPS = ["rt_ctr.mkv", "mbaff_b.mkv", "rt_ctr.ts", "rt_ctr.avi",
@@ -103,6 +131,11 @@ DECODE_OPS_PER_BIN = 20  # and of one lane_decode bin
 DECODE_CHAIN_CYCLES = 53
 SM_CLOCK_HZ = 1.98e9
 # (clip, scope, substream_bins) of the phase-10 containers; 0 = v1
+MESH_SHARDS = (1, 2, 4, 7)  # shard counts of phase 12 on one card
+MESH_FULL = 4  # shards of the full group, and of the est path
+MESH_B = 4096
+EST_MESH_CASES = [(c, s) for c in ("rt_ctr.mkv", "mbaff_b.mkv")
+                  for s in ("slice", "gop")]
 DECODE_CONTAINERS = [(c, "gop", 4096) for c in CLIPS] + [
     ("rt_ctr.mkv", "gop", 0), ("mbaff_b.mkv", "gop", 0),
     ("rt_ctr.mkv", "slice", 512), ("mbaff_b.mkv", "slice", 512)]
@@ -731,6 +764,333 @@ def phase_decode_full(dev, group, card):
     return err, ms, plain, bound, by
 
 
+def nonempty_shards(n_rows, n):
+    return sum(hi > lo for lo, hi in tmesh.shard_ranges(n_rows, n))
+
+
+def phase_mesh_main_path(dev, clips):
+    """device_compress(mesh=...) with several shards on card 0, both paths,
+    and the sharded decode; returns the three kernels' launches in the
+    meshed calls."""
+    counts = [0, 0, 0]  # launches of the meshed calls alone
+    B = MESH_B
+    for clip in clips:
+        data = open(os.path.join(ROOT, "data", clip), "rb").read()
+        want = device_compress(data, scope="gop", substream_bins=B,
+                               device=dev)
+        if want != codec.compress(data, scope="gop", substream_bins=B):
+            raise AssertionError(f"{clip}: port != codec.compress")
+        traces = extract_traces(data, scope="gop", want_slots=False)[3]
+        L = tlc.pack_lanes(traces, B)[0].shape[0]
+        for n in MESH_SHARDS:
+            before = tlc.lane_encode.launches
+            t0 = time.time()
+            out = device_compress(data, mesh=make_mesh(n, device=dev),
+                                  scope="gop", substream_bins=B)
+            dt = time.time() - t0
+            grew = tlc.lane_encode.launches - before
+            counts[0] += grew
+            if out != want:
+                raise AssertionError(f"{clip} n={n}: mesh != no mesh")
+            if native.decompress(out, 0) != data:
+                raise AssertionError(f"{clip} n={n}: does not roundtrip")
+            if grew != nonempty_shards(L, n):
+                raise AssertionError(
+                    f"{clip} n={n}: {grew} launches for "
+                    f"{nonempty_shards(L, n)} non-empty shards of {L} lanes")
+            log(f"mesh {clip} n={n}: {L} lanes, {grew} launches, equal to "
+                f"the call without a mesh and to codec.compress, roundtrips "
+                f"(device_compress {dt * 1e3:.1f} ms)")
+    n = MESH_FULL
+    for clip, scope in EST_MESH_CASES:
+        data = open(os.path.join(ROOT, "data", clip), "rb").read()
+        n_traces = len(extract_traces(data, scope=scope)[3])
+        before = tec.est_encode.launches
+        t0 = time.time()
+        out = device_compress(data, mesh=make_mesh(n, device=dev),
+                              scope=scope, substream_bins=0)
+        dt = time.time() - t0
+        grew = tec.est_encode.launches - before
+        counts[1] += grew
+        if out != native.compress(data, scope=scope):
+            raise AssertionError(f"{clip} {scope}: est mesh != native")
+        if grew != nonempty_shards(n_traces, n):
+            raise AssertionError(f"{clip} {scope}: {grew} est launches for "
+                                 f"{n_traces} traces on {n} shards")
+        log(f"est mesh {clip} {scope} n={n}: {n_traces} traces, {grew} "
+            f"launches, equal to native.compress "
+            f"(device_compress {dt * 1e3:.1f} ms)")
+    # the decode direction: lanes of real traces over the mesh
+    data = open(os.path.join(ROOT, "data", "mbaff_b.mkv"), "rb").read()
+    traces = [t for t in extract_traces(data, scope="gop")[3] if len(t)]
+    bitp1, lens, _ = tlc.split_lanes(traces, 2048)
+    streams = tlc.lane_streams_device(bitp1, lens, dev)
+    p1s = bitp1 & 0xFFFF
+    whole = tld.decode_streams_lanes(streams, p1s, lens, device=dev)
+    live = np.arange(bitp1.shape[1])[None, :] < lens[:, None]
+    if not np.array_equal(whole.cpu().numpy(), ((bitp1 >> 16) & 1) * live):
+        raise AssertionError("decode_streams_lanes: bits != the input bits")
+    for n in MESH_SHARDS:
+        before = tld.lane_decode.launches
+        got = tld.decode_streams_lanes(streams, p1s, lens,
+                                       mesh=make_mesh(n, device=dev))
+        grew = tld.lane_decode.launches - before
+        counts[2] += grew
+        if not torch.equal(got, whole) or grew != nonempty_shards(len(lens), n):
+            raise AssertionError(f"sharded decode n={n}: differs, or {grew} "
+                                 f"launches")
+        log(f"mesh decode n={n}: {len(lens)} lanes, {grew} launches, equal "
+            f"to the unsharded call and to the input bits")
+    log(f"mesh main path: lane_encode.launches={counts[0]} "
+        f"est_encode.launches={counts[1]} lane_decode.launches={counts[2]}")
+    if min(counts) <= 0:
+        raise AssertionError("a mesh path never launched its kernel")
+    return counts
+
+
+def staged_ms(dev, shards, streams_cuda):
+    """The lane path stage by stage on the given row shards (one: the
+    unsharded call), the device idle between stages: ms of upload + launch,
+    finalize, read-back, and the stream bytes."""
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def each(fn, items):
+        out = []
+        for stream, item in zip(streams_cuda, items):
+            with tmesh.on_shard(stream):
+                out.append(fn(item))
+        return out
+
+    launched, t_launch = timed(lambda: each(
+        lambda rows: tlc.lane_launch_compact(*rows, dev), shards))
+    pending, t_fin = timed(lambda: each(tlc.lane_finalize_launched, launched))
+    parts, t_read = timed(lambda: each(tlc.lane_collect, pending))
+    return (t_launch, t_fin, t_read), [s for p in parts for s in p]
+
+
+def phase_mesh_full(dev, group, card):
+    """Phase 5's full group through the mesh encoder, beside the unsharded
+    call: whole calls on the host clock in turns, kernels by CUDA events,
+    and the stage split of both."""
+    want, p1u16, bitw, lens = group
+    L, B = p1u16.shape
+    n = MESH_FULL
+    mesh = make_mesh(n, device=dev)
+    encode = tpipe._mesh_lane_encoder(mesh)
+
+    def whole(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        streams = fn()
+        torch.cuda.synchronize(dev)
+        return streams, (time.perf_counter() - t0) * 1e3
+
+    def plain_call():
+        return tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)
+
+    times = {"unsharded": [], "mesh": []}
+    before = tlc.lane_encode.launches
+    for name, fn in (("unsharded", plain_call),
+                     ("mesh", lambda: encode(p1u16, bitw, lens))) * 2 + (
+                         ("unsharded", plain_call),):
+        streams, ms = whole(fn)
+        times[name].append(ms)
+        if streams != want:
+            raise AssertionError(f"full group, {name}: streams differ from "
+                                 f"phase 5's")
+    if tlc.lane_encode.launches - before != 3 + 2 * n:
+        raise AssertionError("full group: unexpected launch count")
+    log(f"mesh full group [{L}, {B}] n={n} on {card}: streams equal the "
+        f"single launch's; whole call on the host clock, in turns, ms: "
+        f"unsharded {', '.join(f'{t:.1f}' for t in times['unsharded'])}; "
+        f"mesh {', '.join(f'{t:.1f}' for t in times['mesh'])}")
+
+    # the kernels alone: one launch, against n launches on n streams
+    prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
+    ranges = tmesh.shard_ranges(L, n)
+    shard_probs = [tuple(t[lo:hi].contiguous() for t in prob)
+                   for lo, hi in ranges]
+    cuda_streams = tmesh.shard_streams(mesh)
+
+    def sharded_kernels():
+        here = torch.cuda.current_stream(dev)
+        for s, sp in zip(cuda_streams, shard_probs):
+            s.wait_stream(here)
+            with torch.cuda.stream(s):
+                tlc.lane_encode(*sp)
+        for s in cuda_streams:
+            here.wait_stream(s)
+
+    sharded_kernels()  # warm-up
+    one = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
+    many = cuda_ms(sharded_kernels, 5)
+    one2 = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
+    log(f"mesh full group kernels on {card}: one launch {one:.3f} / "
+        f"{one2:.3f} ms, {n} launches on {n} streams {many:.3f} ms")
+    del prob, shard_probs
+
+    rows = [(p1u16[lo:hi], bitw[lo:hi], lens[lo:hi]) for lo, hi in ranges]
+    split_one, s1 = staged_ms(dev, [(p1u16, bitw, lens)], [None])
+    split_n, s2 = staged_ms(dev, rows, cuda_streams)
+    if s1 != want or s2 != want:
+        raise AssertionError("full group: the staged streams differ")
+    for name, sp in (("unsharded", split_one), (f"mesh n={n}", split_n)):
+        log(f"mesh full group stages, {name}, on {card}, ms (the device "
+            f"idle between stages): upload + launch {sp[0]:.2f}, finalize "
+            f"{sp[1]:.2f}, read-back {sp[2]:.2f}, sum {sum(sp):.2f}")
+
+    if torch.cuda.device_count() > 1:
+        cards = make_mesh()
+        streams, ms = whole(lambda: tpipe._mesh_lane_encoder(cards)(
+            p1u16, bitw, lens))
+        if streams != want:
+            raise AssertionError("full group over the distinct cards differs")
+        log(f"mesh full group over {len(cards)} distinct cards: streams "
+            f"equal, whole call {ms:.1f} ms (first call on the other cards)")
+    else:
+        log("mesh over distinct cards: 1 card present, not run")
+
+
+def _smoke_step_rank(rank, world, device, arrays):
+    """multichip_step on one rank of phase 13."""
+    before = tec.est_encode.launches
+    out, lens, total = tpipe.multichip_step(*arrays, device=device)
+    return {"out": out, "lens": lens, "total": total,
+            "launches": tec.est_encode.launches - before,
+            "device": str(ranks.rank_device(device, rank))}
+
+
+def _smoke_multihost_rank(rank, world, device, clip):
+    """compress_sharded / stitch and decompress_sharded /
+    stitch_decompressed on one rank of phase 13; every rank checks."""
+    data = open(clip, "rb").read()
+    t0 = time.perf_counter()
+    frag = multihost.compress_sharded(data, rank, world, threads=1)
+    t1 = time.perf_counter()
+    blob = multihost.stitch(multihost.allgather_bytes(frag))
+    t2 = time.perf_counter()
+    if blob != native.compress(data, scope="gop"):
+        raise AssertionError("stitched container != native.compress")
+    t3 = time.perf_counter()
+    part = multihost.decompress_sharded(blob, rank, world, threads=1)
+    t4 = time.perf_counter()
+    parts = multihost.allgather_bytes(part)
+    t5 = time.perf_counter()
+    if multihost.stitch_decompressed(parts) != data:
+        raise AssertionError("sharded decompress != the file")
+    return {"fragment": len(frag), "part": len(part), "container": len(blob),
+            "work_s": (t1 - t0) + (t4 - t3),
+            "collectives_s": (t2 - t1) + (t5 - t4)}
+
+
+def rank_times(reports):
+    return "; ".join(
+        f"rank {r}: start-up {rep['start_s']:.2f} s, work "
+        f"{rep['result']['work_s']:.3f} s, collectives "
+        f"{rep['result']['collectives_s']:.3f} s, exit at {rep['exit_s']:.2f} s"
+        for r, rep in enumerate(reports))
+
+
+def phase_ranks(dev, card, rank_dev=None):
+    """Several processes, one rank each, sharing the card (rank_dev=None:
+    rank r on cuda:{r % device_count}); returns the (lane_encode,
+    est_encode) launches the ranks counted."""
+    mode = ranks.compute_mode(0)
+    log(f"ranks: compute mode {mode}; {torch.cuda.device_count()} card(s); "
+        f"backend for 4 ranks {ranks.pick_backend(4, rank_dev)}, for 2 "
+        f"ranks {ranks.pick_backend(2, rank_dev)}")
+    t0 = time.time()
+    reports = graft_entry.dryrun_multichip(4, device=rank_dev)
+    wall = time.time() - t0
+    results = [r["result"] for r in reports]
+    lane_launches = sum(r["launches"] for r in results)
+    log(f"dryrun_multichip(4) on {card}: passed its asserts in {wall:.2f} s "
+        f"wall; backend {reports[0]['backend']}, grid {results[0]['grid']}, "
+        f"{results[0]['lanes']} lanes, total {results[0]['total']} bytes, "
+        f"offsets {[r['offset'] for r in results]}, devices "
+        f"{[r['device'] for r in results]}, lane_encode launches "
+        f"{[r['launches'] for r in results]}; {rank_times(reports)}")
+    if any(r["launches"] < 1 or not r["device"].startswith("cuda")
+           for r in results):
+        raise AssertionError("a rank of the dry run launched no kernel")
+
+    data = open(os.path.join(ROOT, "data", "rt_ctr.mkv"), "rb").read()
+    traces = extract_traces(data, scope="slice")[3]
+    arrays = tpipe.pack_traces(traces, pad_multiple=2)
+    want = tec.encode_traces_est(traces, dev)
+    t0 = time.time()
+    reports = ranks.run_ranks(_smoke_step_rank, 2, (arrays,),
+                                  device=rank_dev)
+    wall = time.time() - t0
+    got = []
+    for res in (r["result"] for r in reports):
+        got += [stream_bytes(res["out"][i], res["lens"][i])
+                for i in range(len(res["lens"]))]
+    total = sum(map(len, want))
+    if got[: len(want)] != want or any(b for b in got[len(want):]):
+        raise AssertionError("multichip_step: rows != the single-process "
+                             "est streams")
+    if [r["result"]["total"] for r in reports] != [total] * 2:
+        raise AssertionError("multichip_step: total != the sum of the lens")
+    est_launches = sum(r["result"]["launches"] for r in reports)
+    log(f"multichip_step over 2 ranks on {card}: {len(want)} slice traces of "
+        f"rt_ctr.mkv equal to the single-process est streams, total {total} "
+        f"bytes on both ranks; backend {reports[0]['backend']}, devices "
+        f"{[r['result']['device'] for r in reports]}, est_encode launches "
+        f"{[r['result']['launches'] for r in reports]}; {wall:.2f} s wall, "
+        f"start-up {[round(r['start_s'], 2) for r in reports]} s, exit at "
+        f"{[round(r['exit_s'], 2) for r in reports]} s")
+    if any(r["result"]["launches"] < 1 for r in reports):
+        raise AssertionError("a rank of multichip_step launched no kernel")
+
+    clip = os.path.join(ROOT, "data", "mbaff_b.mkv")
+    t0 = time.time()
+    reports = ranks.run_ranks(_smoke_multihost_rank, 2, (clip,),
+                                  device=rank_dev)
+    wall = time.time() - t0
+    log(f"multihost over 2 ranks: compress_sharded + stitch equal to "
+        f"native.compress, decompress_sharded + stitch_decompressed equal to "
+        f"the file (mbaff_b.mkv, fragments "
+        f"{[r['result']['fragment'] for r in reports]} bytes, parts "
+        f"{[r['result']['part'] for r in reports]} bytes); backend "
+        f"{reports[0]['backend']}; {wall:.2f} s wall; {rank_times(reports)}")
+    return lane_launches, est_launches
+
+
+def phase_cli():
+    """The command line, as a user starts it."""
+    src = os.path.join(ROOT, "data", "rt_ctr.mkv")
+    data = open(src, "rb").read()
+
+    def cli(*argv):
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "avrecode_tpu_torch", *argv], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"cli {argv}: exit code {res.returncode}\n"
+                                 f"{res.stdout}{res.stderr}")
+        log(f"cli {' '.join(argv[:-2] if len(argv) > 3 else argv[:-1])}: exit "
+            f"0 in {time.time() - t0:.2f} s; {res.stderr.strip()[:100]}")
+
+    cli("roundtrip", src)
+    with tempfile.TemporaryDirectory() as tmp:
+        avtr, out = os.path.join(tmp, "c.avtr"), os.path.join(tmp, "c.out")
+        cli("--hosts", "2", "compress", src, avtr)
+        cli("--hosts", "2", "decompress", avtr, out)
+        blob, back = open(avtr, "rb").read(), open(out, "rb").read()
+    if blob != native.compress(data, scope="gop") or back != data:
+        raise AssertionError("cli --hosts 2: bytes differ")
+    log(f"cli: --hosts 2 container equal to native.compress ({len(blob)} "
+        f"bytes), decompressed bytes equal to the input ({len(back)})")
+
+
 def main():
     # 1 device
     if not torch.cuda.is_available():
@@ -805,12 +1165,35 @@ def main():
     dec_full_err, dec_ms, dec_plain_ms, dec_bound, dec_by = phase_decode_full(
         dev, full_group, card)
 
+    # 12 the mesh: one process, several shards on the card
+    mesh_lane, mesh_est, mesh_dec = phase_mesh_main_path(dev, CLIPS)
+    phase_mesh_full(dev, full_group, card)
+    del full_group
+
+    # 13 ranks: several processes share the card
+    rank_lane, rank_est = phase_ranks(dev, card)
+
+    # 14 the command line
+    phase_cli()
+
+    lane_paths = {"device_compress": launches, "mesh": mesh_lane,
+                  "dryrun_multichip": rank_lane}
+    est_paths = {"device_compress": est_launches, "mesh": mesh_est,
+                 "multichip_step": rank_est}
+    dec_paths = {"device_decompress": dec_launches, "mesh": mesh_dec}
+    for name, paths in (("lane_encode", lane_paths), ("est_encode", est_paths),
+                        ("lane_decode", dec_paths)):
+        log(f"{name} launches by main path: {paths}")
+        if min(paths.values()) <= 0:
+            raise AssertionError(f"{name}: a main path launched it no time")
+
     print(json.dumps({"kernels": [{
         "name": "lane_encode",
         "route": "cuda",
         "source": "avrecode_tpu_torch/csrc/lane_encode.cu",
         "replaces": "avrecode_tpu/ops/lane_coder.py:195",
-        "launches": launches,
+        "launches": sum(lane_paths.values()),
+        "launches_by_path": lane_paths,
         "max_abs_err": max(err, full_lane_err),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -822,7 +1205,8 @@ def main():
         "route": "cuda",
         "source": "avrecode_tpu_torch/csrc/est_encode.cu",
         "replaces": "avrecode_tpu/ops/pallas_coder.py:48",
-        "launches": est_launches,
+        "launches": sum(est_paths.values()),
+        "launches_by_path": est_paths,
         "max_abs_err": max(est_err, full_err),
         "ms": est_ms,
         "plain_ms": est_plain_ms,
@@ -834,7 +1218,8 @@ def main():
         "route": "cuda",
         "source": "avrecode_tpu_torch/csrc/lane_decode.cu",
         "replaces": "avrecode_tpu/ops/lane_decoder.py:80",  # an XLA scan
-        "launches": dec_launches,
+        "launches": sum(dec_paths.values()),
+        "launches_by_path": dec_paths,
         "max_abs_err": max(dec_err, dec_full_err),
         "ms": dec_ms,
         "plain_ms": dec_plain_ms,

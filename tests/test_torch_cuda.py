@@ -19,7 +19,8 @@ from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.ops import lane_decoder as tld
 from avrecode_tpu_torch.parallel.pipeline import (
-    device_compress, device_decompress)
+    device_compress, device_decompress, extract_traces, make_mesh,
+    multichip_step)
 from chip_smoke import EST_CASES, EST_SWEEP
 from chip_smoke import decode_problem as _decode_problem
 from chip_smoke import est_problem as _est_problem
@@ -184,3 +185,66 @@ def test_device_decompress_launches_kernel(cuda, scope, B):
     before = tld.lane_decode.launches
     assert device_decompress(blob, device=cuda) == data
     assert tld.lane_decode.launches == before + 1
+
+
+def _cuda_step_rank(rank, world, device, arrays):
+    """multichip_step on one rank that shares the card."""
+    before = tec.est_encode.launches
+    out, lens, total = multichip_step(*arrays, device=device)
+    return out, lens, total, tec.est_encode.launches - before
+
+
+@pytest.mark.parametrize("n", [1, 4, 7])
+def test_mesh_of_streams_on_one_card(cuda, n):
+    """n shards on streams of card 0: the bytes of the call without a mesh,
+    one lane_encode launch a non-empty shard; the est path and the sharded
+    decode alike."""
+    if not native.available():
+        pytest.skip("native library not built")
+    data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
+    mesh = make_mesh(n, device="cuda:0")
+    assert mesh == (torch.device("cuda", 0),) * n
+    traces = extract_traces(data, scope="gop", want_slots=False)[3]
+    L = tlc.pack_lanes(traces, 4096)[0].shape[0]
+    before = tlc.lane_encode.launches
+    out = device_compress(data, mesh=mesh, scope="gop", substream_bins=4096)
+    assert tlc.lane_encode.launches - before == min(n, L)
+    assert out == codec.compress(data, scope="gop", substream_bins=4096)
+    before = tec.est_encode.launches
+    est = device_compress(data, mesh=mesh, scope="gop", substream_bins=0)
+    assert tec.est_encode.launches - before == min(n, 4)  # 4 GOPs
+    assert est == native.compress(data, scope="gop")
+
+    prob, want = _decode_problem("random", 70, 160, 230, cuda)
+    streams = [bytes(prob[0][int(a):int(b)].cpu().numpy())
+               for a, b in zip(prob[1][:-1], prob[1][1:])]
+    p1s, lens = prob[2].cpu().numpy(), prob[3].cpu().numpy()
+    before = tld.lane_decode.launches
+    bits = tld.decode_streams_lanes(streams, p1s, lens, mesh=mesh)
+    assert tld.lane_decode.launches - before == n
+    assert bits.device == torch.device("cuda", 0)
+    np.testing.assert_array_equal(bits.cpu().numpy(), want)
+
+
+def test_two_ranks_share_the_card(cuda):
+    """multichip_step and the dry run over ranks that share card 0: gloo
+    carries the collectives, every rank launches the CUDA kernels."""
+    from avrecode_tpu_torch import graft_entry
+    from avrecode_tpu_torch.ops.estimator import stream_bytes
+    from avrecode_tpu_torch.parallel import ranks
+
+    arrays = _est_problem("random", 8, 200, 32, seed=3)
+    arrays = tuple(np.asarray(a, np.int32) for a in arrays)
+    want = tec.est_collect(*tec.est_encode(
+        *tec.from_numpy_traces(*arrays, cuda)))
+    reports = ranks.run_ranks(_cuda_step_rank, 2, (arrays,),
+                                  device="cuda:0")
+    assert [r["backend"] for r in reports] == ["gloo", "gloo"]
+    got = []
+    for out, lens, total, launches in (r["result"] for r in reports):
+        assert launches == 1 and total == sum(map(len, want))
+        got += [stream_bytes(out[i], lens[i]) for i in range(len(lens))]
+    assert got == want
+    reports = graft_entry.dryrun_multichip(2)
+    assert all(r["result"]["launches"] >= 1 for r in reports)
+    assert all(r["result"]["device"].startswith("cuda") for r in reports)

@@ -58,7 +58,8 @@ def test_every_port_module_imports_without_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     for m in ("parallel.pipeline", "codec", "host.native", "h264.stream",
               "models.trace", "utils.container", "ops._mix_tables",
-              "ops.lane_decoder", "graft_entry"):
+              "ops.lane_decoder", "graft_entry", "parallel.mesh",
+              "parallel.multihost", "parallel.ranks", "cli", "__main__"):
         assert f"avrecode_tpu_torch.{m}" in MODULES
 
 
@@ -112,6 +113,52 @@ def test_pipeline_entries_raise_without_card(monkeypatch):
         encode_traces_lanes([], 64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device_decompress(b"not a container")
+
+
+def test_mesh_and_rank_entries_raise_without_card(monkeypatch):
+    """make_mesh, device_compress(mesh=...) on cards, multichip_step and
+    dryrun_multichip need a card unless the CPU is asked for."""
+    from avrecode_tpu_torch.graft_entry import dryrun_multichip
+    from avrecode_tpu_torch.ops.lane_decoder import decode_streams_lanes
+    from avrecode_tpu_torch.parallel import multihost, ranks
+    from avrecode_tpu_torch.parallel.pipeline import (
+        device_compress, make_mesh, multichip_step)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for args in ((), (4,), (2, "cuda:0"), (None, "cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(*args)
+    cards = (torch.device("cuda", 0), torch.device("cuda", 0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_compress(b"not a video", mesh=cards)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_streams_lanes([], [[]], [], mesh=cards)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multichip_step(*[[[0]]] * 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ranks.rank_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ranks.pick_backend(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.init_distributed("127.0.0.1:1", 2, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ranks.run_ranks(test_version, 2)
+    assert make_mesh(2, device="cpu") == (torch.device("cpu"),) * 2
+
+
+def test_cli_is_host_code():
+    """The command line, --hosts included, starts without loading torch:
+    GOP sharding is host code."""
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.argv = ['x']\n"
+         "import avrecode_tpu_torch.cli\n"
+         "import avrecode_tpu_torch.parallel.multihost\n"
+         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "[]", res.stdout
 
 
 def test_version():

@@ -110,3 +110,69 @@ def test_est_launch_plan_takes_both_routes():
     assert tec.est_launch_plan(4096)[1] is True
     assert tec.est_launch_plan(30000)[1] is False
     assert tec.WARP_FIXED_BYTES == 29120 and tec.TABLE_BYTES == 18432
+
+
+_BUILD_STUB = r"""
+import sys, time
+from pathlib import Path
+from avrecode_tpu_torch.ops import _build
+
+_build.BUILD_DIR = Path(sys.argv[1])
+calls = Path(sys.argv[1]) / "calls.txt"
+
+def compile_stub(out):
+    with open(calls, "a") as f:
+        f.write("compiled\n")
+    time.sleep(1.0)  # long enough for the other processes to queue up
+    Path(out).write_bytes(b"library")
+    class Result:
+        returncode, stdout, stderr = 0, "stub log", ""
+    return ["stub"], Result
+
+_build._compile = compile_stub
+so = _build.build()
+assert so.read_bytes() == b"library" and so == _build.library_path()
+print(so.name)
+"""
+
+
+def test_kernel_build_runs_once_under_concurrent_first_use(tmp_path):
+    """Processes that call build() at once with nothing built (ranks, test
+    workers): one compiles under the file lock, the others wait and find
+    its library."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _BUILD_STUB, str(tmp_path)],
+                         cwd=root, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for _ in range(3)
+    ]
+    names = []
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out
+        names.append(out.strip())
+    assert len(set(names)) == 1 and names[0].endswith(".so")
+    assert (tmp_path / "calls.txt").read_text() == "compiled\n"
+    assert (tmp_path / names[0]).with_suffix(".log").read_text() == "stub log"
+    assert not list(tmp_path.glob("*.tmp"))
+
+
+def test_kernel_build_failure_raises_with_the_compiler_output(tmp_path,
+                                                              monkeypatch):
+    from pathlib import Path
+
+    from avrecode_tpu_torch.ops import _build
+
+    class Result:
+        returncode, stdout, stderr = 1, "", "error: no such kernel"
+
+    monkeypatch.setattr(_build, "BUILD_DIR", Path(tmp_path))
+    monkeypatch.setattr(_build, "_compile", lambda out: (["nvcc"], Result))
+    with pytest.raises(RuntimeError, match="no such kernel"):
+        _build.build()
+    assert not list(Path(tmp_path).glob("*.so"))

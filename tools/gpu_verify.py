@@ -5,8 +5,9 @@ recorded as an artifact.
 Runs the port's device paths (avrecode_tpu_torch) on the card, compares
 them byte for byte with the port's host codec, and writes GPU_VERIFY.json,
 so that on-card byte-identity is a pinned, reproducible record.  The checks
-are those of tools/tpu_verify.py; each one also requires that the CUDA
-kernel it is about was launched.
+are those of tools/tpu_verify.py, then a meshed device_compress (both
+paths) and dryrun_multichip(4) with the backend that ran; each one also
+requires that the CUDA kernel it is about was launched.
 
 Usage: python tools/gpu_verify.py [--out PATH] [clip [small_clip]]
 
@@ -56,12 +57,13 @@ def main(argv):
     import torch
 
     from avrecode_tpu_torch import codec
+    from avrecode_tpu_torch.graft_entry import dryrun_multichip
     from avrecode_tpu_torch.host import native
     from avrecode_tpu_torch.ops.est_coder import est_encode
     from avrecode_tpu_torch.ops.lane_coder import lane_encode
     from avrecode_tpu_torch.ops.lane_decoder import lane_decode
     from avrecode_tpu_torch.parallel.pipeline import (
-        device_compress, device_decompress)
+        device_compress, device_decompress, make_mesh)
 
     out_path = os.path.join(ROOT, "GPU_VERIFY.json")
     if argv[:1] == ["--out"]:
@@ -121,6 +123,31 @@ def main(argv):
     check("device_decompress_end_to_end", lambda: device_decompress(
         codec.compress(sdata, scope="gop", substream_bins=4096)) == sdata,
         [lane_decode])
+    # several shards on the card, and several ranks that share it (the
+    # port's stand-in for the JAX package's multi-chip dry-run records)
+    mesh = make_mesh(4, device="cuda:0")
+    check("mesh_lane_coder_byte_identical", lambda: (
+        device_compress(data, mesh=mesh, scope="gop", substream_bins=4096)
+        == codec.compress(data, scope="gop", substream_bins=4096)),
+        [lane_encode])
+    check("mesh_est_kernel_byte_identical", lambda: (
+        device_compress(sdata, mesh=mesh, scope="slice", substream_bins=0)
+        == native.compress(sdata, scope="slice")), [est_encode])
+
+    def dryrun():
+        reports = dryrun_multichip(4)
+        out["dryrun_multichip"] = {
+            "ranks": len(reports),
+            "backend": reports[0]["backend"],
+            "grid": list(reports[0]["result"]["grid"]),
+            "devices": [r["result"]["device"] for r in reports],
+            "lane_encode_launches": [r["result"]["launches"] for r in reports],
+            "total_bytes": reports[0]["result"]["total"],
+            "offsets": [r["result"]["offset"] for r in reports],
+        }
+        return all(r["result"]["launches"] >= 1 for r in reports)
+
+    check("dryrun_multichip_4_ranks", dryrun, [])
     # CAVLC streams ride the same device pipelines
     cav = os.path.join(ROOT, "data", "cavlc_ipp.mp4")
     if os.path.exists(cav):
