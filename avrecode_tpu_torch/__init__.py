@@ -9,7 +9,9 @@ layer, with the same module paths and function names:
 
   ops/lane_coder.py     lane-parallel estimator-free range coder; the CUDA
                         kernel in csrc/lane_encode.cu replaces the Pallas
-                        `_lane_kernel`
+                        `_lane_kernel`, and the one in csrc/lane_streams.cu
+                        (encode and finalize in one launch, the main path)
+                        replaces `_lane_pipeline_jit`
   ops/estimator.py      est-on-device model + range coder, plain torch
                         (counterpart of ops/estimator_jax.py)
   ops/est_coder.py      est kernel wrapper, packing, host finalize; the CUDA

@@ -92,6 +92,9 @@ def load():
     ptr = ctypes.c_void_p
     lib.lane_encode_launch.argtypes = [ptr] * 7 + [ctypes.c_int, ctypes.c_int, ptr]
     lib.lane_encode_launch.restype = ctypes.c_int
+    lib.lane_encode_streams_launch.argtypes = (
+        [ptr] * 6 + [ctypes.c_int] * 3 + [ptr])
+    lib.lane_encode_streams_launch.restype = ctypes.c_int
     lib.est_encode_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 6 + [ptr]
     lib.est_encode_launch.restype = ctypes.c_int
     lib.lane_decode_launch.argtypes = (

@@ -21,10 +21,21 @@ is the count of pending 32-bit carries attached to byte0.  finalize_device
 (or the numpy finalize_lanes) resolves carries (base-256 ripple) and
 applies the host flush-truncation and shortest-terminator rules.
 
+The main path does both in one launch: lane_encode_streams (the CUDA kernel
+csrc/lane_streams.cu, which replaces the JAX package's _lane_pipeline_jit =
+_lane_kernel + _finalize_device) goes from the lane problem straight to
+every lane's stream bytes; lane_encode_streams_plain = finalize_device of
+lane_encode_plain is its plain version.  Around it, lane_dispatch_compact
+uploads through reused pinned staging buffers and launches without a host
+sync, and lane_collect reads back the lengths first and then only the
+columns that hold stream bytes.
+
 torch defines no int32 overflow, so the plain version holds uint32 values
 in int64 tensors with explicit & 0xFFFFFFFF masks; a plain compare is then
 the unsigned compare the JAX version builds from a sign flip.
 """
+
+import threading
 
 import numpy as np
 import torch
@@ -284,8 +295,9 @@ def finalize_device(tok, car, ftok, fcar, max_bytes):
 
     Returns (bytes uint8 [L, M], nbytes int32 [L], overflow bool tensor):
     `overflow` is set when some lane emitted more than M bytes (adversarial
-    streams; lane_collect then finalizes that group exactly on the host
-    from the same tokens)."""
+    streams; such a group is finalized exactly on the host).  This is the
+    plain version of the finalize that lane_encode_streams fuses into the
+    encoder; its ripple loop reads one flag back to the host a pass."""
     L, B = tok.shape
     M = max_bytes
     n = (tok >> 16) & 3
@@ -330,6 +342,76 @@ def finalize_device(tok, car, ftok, fcar, max_bytes):
     return val.to(torch.uint8), nbytes.to(torch.int32), overflow
 
 
+def lane_encode_streams_plain(p1u16, bitw, lens, M):
+    """Plain torch version of the fused kernel: finalize_device of
+    lane_encode_plain's tokens.  Returns (out uint8 [L, M], nbytes int32
+    [L], total int32 [L]); see lane_encode_streams."""
+    tok, car, ftok, fcar = lane_encode_plain(p1u16, bitw, lens)
+    out, nbytes, _ = finalize_device(tok, car, ftok, fcar, M)
+    total = ((tok >> 16) & 3).sum(dim=1, dtype=torch.int32) + 2
+    return out, nbytes, total
+
+
+def lane_encode_streams(p1u16, bitw, lens, M):
+    """Kernel wrapper: range-code every lane of the compact lane problem
+    straight to its stream bytes (encode and finalize in one launch; the
+    counterpart of the JAX package's _lane_pipeline_jit).
+
+    M is the byte bound a lane (max_bytes), a multiple of 8.  Returns
+      out    uint8 [L, M]  out[l, :nbytes[l]] is lane l's stream, byte for
+                           byte finalize_lanes' of lane_encode's tokens;
+                           bytes at and past nbytes[l] are unspecified
+      nbytes int32 [L]
+      total  int32 [L]     bytes lane l emitted, the two flush bytes
+                           included.  total[l] > M: the lane ran past the
+                           bound, and out[l] and nbytes[l] mean nothing;
+                           (total > M).any() is the JAX function's overflow
+                           flag, taken on the device without a host sync.
+
+    CUDA tensors launch the CUDA kernel (built at first use; raises if it
+    cannot build or launch), on the current stream without synchronising.
+    CPU tensors run lane_encode_streams_plain.
+    lane_encode_streams.launches counts kernel launches."""
+    _check_problem(p1u16, bitw, lens)
+    if M <= 0 or M % 8:
+        raise ValueError(f"M={M} must be a positive multiple of 8 (the "
+                         "kernel stores a lane's bytes in 8-byte pieces)")
+    dev = p1u16.device
+    if dev.type == "cpu":
+        return lane_encode_streams_plain(p1u16, bitw, lens, M)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"lane_encode_streams takes cuda or cpu tensors, not {dev}")
+    if p1u16.data_ptr() % 16:
+        raise ValueError("p1u16 must start on a 16-byte boundary (the kernel "
+                         "copies it in 16-byte pieces)")
+    from ._build import load
+
+    lib = load()
+    L, Bp = p1u16.shape
+    out = torch.empty((L, M), dtype=torch.uint8, device=dev)
+    nbytes = torch.empty(L, dtype=torch.int32, device=dev)
+    total = torch.empty_like(nbytes)
+    if L == 0:
+        return out, nbytes, total
+    with torch.cuda.device(dev):
+        err = lib.lane_encode_streams_launch(
+            p1u16.data_ptr(), bitw.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), nbytes.data_ptr(), total.data_ptr(),
+            L, Bp, M, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"lane_encode_streams kernel launch failed: cudaError {err} "
+            f"({lib.kernel_error_string(err).decode()})"
+        )
+    lane_encode_streams.launches += 1
+    return out, nbytes, total
+
+
+lane_encode_streams.launches = 0
+
+
 def pack_compact(bitp1, lens, pad_lanes=LANES):
     """Host-side compact packing: int32 (p1 | bit << 16) [L, B] ->
     (uint16 p1, int32 bit-words, int32 lens), lane/bin axes padded to
@@ -369,12 +451,82 @@ def to_bitp1(p1u16, bitw):
     return p1 | (bits.astype(np.int32) << 16)
 
 
+STAGE_BYTES = 32 << 20  # one pinned staging buffer
+STAGE_RING = 3  # staging buffers of a process, used in turns
+
+
+class _Staging:
+    """The process's pinned host buffers: a ring of STAGE_RING upload
+    buffers of STAGE_BYTES, used in turns, and one read-back buffer that
+    grows to the largest read.  They are allocated once (pinning a fresh
+    copy of every upload cost more than the copy over the bus).  An upload
+    buffer is rewritten only after the copy that last read it has finished:
+    each carries the event recorded behind that copy, on whatever stream
+    and card it ran."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.ring = []  # [pinned uint8 buffer, event of its last copy]
+        self.turn = 0
+        self.readback = None
+
+    def _next(self):
+        """The next upload buffer, free to be written."""
+        if len(self.ring) < STAGE_RING:
+            self.ring.append(
+                [torch.empty(STAGE_BYTES, dtype=torch.uint8).pin_memory(),
+                 None])
+        slot = self.ring[self.turn % len(self.ring)]
+        self.turn += 1
+        if slot[1] is not None:
+            slot[1].synchronize()
+        return slot
+
+    def upload(self, t, dev):
+        """Contiguous CPU tensor -> a new tensor on the card `dev`, in
+        pieces of STAGE_BYTES: the host fills one staging buffer while the
+        card copies from the one before.  Does not wait for the last
+        copies."""
+        out = torch.empty(t.shape, dtype=t.dtype, device=dev)
+        src = t.reshape(-1).view(torch.uint8)
+        dst = out.reshape(-1).view(torch.uint8)
+        stream = torch.cuda.current_stream(dev)
+        with self.lock:
+            for lo in range(0, src.numel(), STAGE_BYTES):
+                n = min(STAGE_BYTES, src.numel() - lo)
+                slot = self._next()
+                slot[0][:n].copy_(src[lo:lo + n])
+                dst[lo:lo + n].copy_(slot[0][:n], non_blocking=True)
+                slot[1] = torch.cuda.Event()
+                slot[1].record(stream)
+        return out
+
+    def download(self, t):
+        """CUDA tensor -> its bytes on the host (one bytes object), through
+        the pinned read-back buffer; waits for the copy."""
+        n = t.numel() * t.element_size()
+        with self.lock:
+            if self.readback is None or self.readback.numel() < n:
+                self.readback = torch.empty(
+                    1 << max(n - 1, 1).bit_length(),
+                    dtype=torch.uint8).pin_memory()
+            host = self.readback[:n].view(t.dtype).view(t.shape)
+            host.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(t.device))
+            done.synchronize()
+            return host.numpy().tobytes()
+
+
+_staging = _Staging()
+
+
 def _upload(a, dev):
-    """Host numpy rows -> device tensor; CUDA uploads go through pinned
-    memory without blocking the host."""
+    """Host numpy rows -> device tensor; CUDA uploads go through the reused
+    pinned staging buffers without waiting for the card."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
+        return _staging.upload(t, dev)
     return t.to(dev)
 
 
@@ -384,63 +536,72 @@ def max_bytes(Bp, bits_per_byte=4):
     return -(-Bp // bits_per_byte // 8) * 8 + 8
 
 
-def lane_launch_compact(p1u16, bitw, lens, device=None):
-    """Launch phase: upload and encode every group of GROUP_ROWS lane rows
-    on the current stream of `device`, without waiting for the device.
-    Returns one (rows, lens, raw tokens) handle a group for
-    lane_finalize_launched."""
+def lane_dispatch_compact(p1u16, bitw, lens, device=None, bits_per_byte=4):
+    """Dispatch phase of lane_streams_device_compact: upload every group of
+    GROUP_ROWS lane rows and code it with one lane_encode_streams launch,
+    on the current stream of `device`, without a host sync, so callers
+    overlap host work (extraction and packing of the next file, the next
+    shard of a mesh) with device work, then drain with lane_collect.
+
+    Returns one pending handle a group: (rows, lens, out, nbytes, total,
+    the group's device inputs).  bits_per_byte sets the byte bound a lane
+    (max_bytes); a group with a lane past it is coded again by lane_collect
+    from the inputs kept in the handle."""
     dev = resolve_device(device)
     L, Bp = p1u16.shape
     if Bp > MAX_B:
         raise ValueError(f"B={Bp} > {MAX_B} overflows 16-bit carry counts")
-    launched = []
+    M = max_bytes(Bp, bits_per_byte)
+    pending = []
     for lo in range(0, L, GROUP_ROWS):
         hi = min(lo + GROUP_ROWS, L)
-        raw = lane_encode(*(_upload(a[lo:hi], dev) for a in (p1u16, bitw, lens)))
-        launched.append((hi - lo, lens[lo:hi], raw))
-    return launched
+        prob = tuple(_upload(a[lo:hi], dev) for a in (p1u16, bitw, lens))
+        pending.append((hi - lo, lens[lo:hi],
+                        *lane_encode_streams(*prob, M), prob))
+    return pending
 
 
-def lane_finalize_launched(launched, bits_per_byte=4):
-    """Finalize phase: finalize_device on every launched group, on the
-    tokens' device and the current stream.  Returns the pending handles
-    lane_collect reads back.  (The finalize's ripple loop reads one flag
-    per pass, so this waits for the group's kernel; launch every group, and
-    every shard of a mesh, before finalizing any.)
+def read_group(n, out, nbytes, total):
+    """Read one dispatched group back: its lengths first (the one wait for
+    the device), then only the columns that hold stream bytes, in one copy
+    through pinned memory.  Returns (nb, w, flat): lane l's stream is
+    flat[l * w: l * w + nb[l]]; or None when a lane emitted more than the
+    byte bound."""
+    nb, tot = torch.stack([nbytes[:n], total[:n]]).cpu().numpy()
+    if n and tot.max() > out.shape[1]:
+        return None
+    w = int(nb.max()) if n else 0
+    if w == 0:
+        flat = b""
+    elif out.device.type == "cuda":
+        flat = _staging.download(out[:n, :w])
+    else:
+        flat = out[:n, :w].numpy().tobytes()
+    return nb, w, flat
 
-    bits_per_byte sets the read-back bound (max_bytes); a group with a
-    lane past it is finalized exactly on the host from the same tokens."""
-    return [
-        (n, glens, (*finalize_device(*raw, max_bytes(raw[0].shape[1],
-                                                     bits_per_byte)), raw))
-        for n, glens, raw in launched
-    ]
 
-
-def lane_dispatch_compact(p1u16, bitw, lens, device=None, bits_per_byte=4):
-    """Dispatch phase of lane_streams_device_compact: upload, encode and
-    finalize every group of GROUP_ROWS lane rows, and return the pending
-    handles without reading the bytes back, so callers overlap host work
-    (extraction/packing of the next file) with device work, then drain with
-    lane_collect."""
-    return lane_finalize_launched(
-        lane_launch_compact(p1u16, bitw, lens, device), bits_per_byte)
+def cut_streams(nb, w, flat):
+    """read_group's result -> the lanes' stream bytes."""
+    return [flat[l * w: l * w + n] for l, n in enumerate(nb.tolist())]
 
 
 def lane_collect(pending):
-    """Collect phase: read back dispatched lane groups -> stream bytes.
-    lane_collect.overflows counts groups finalized on the host because a
-    lane emitted more than the read-back bound."""
+    """Collect phase: read back dispatched lane groups -> stream bytes
+    (read_group, cut_streams).
+
+    lane_collect.overflows counts groups in which a lane emitted more than
+    the byte bound: such a group is coded again with lane_encode and
+    finalized exactly on the host (finalize_lanes)."""
     streams = []
-    for n, glens, (out, nbytes, overflow, raw) in pending:
-        if bool(overflow):
+    for n, glens, out, nbytes, total, prob in pending:
+        got = read_group(n, out, nbytes, total)
+        if got is None:
             lane_collect.overflows += 1
-            tok, car, ftok, fcar = (t[:n].cpu().numpy() for t in raw)
+            tok, car, ftok, fcar = (t[:n].cpu().numpy()
+                                    for t in lane_encode(*prob))
             streams.extend(finalize_lanes(tok, car, ftok, fcar, glens))
-            continue
-        out = out[:n].cpu().numpy()
-        nb = nbytes[:n].cpu().numpy()
-        streams.extend(bytes(out[l, : nb[l]]) for l in range(n))
+        else:
+            streams.extend(cut_streams(*got))
     return streams
 
 
@@ -449,8 +610,8 @@ lane_collect.overflows = 0
 
 def lane_streams_device_compact(p1u16, bitw, lens, device=None,
                                 bits_per_byte=4):
-    """Kernel + on-device finalize on pre-packed compact arrays (see
-    split_lanes_recs) -> list of per-lane stream bytes."""
+    """The fused kernel on pre-packed compact arrays (see split_lanes_recs)
+    -> list of per-lane stream bytes."""
     return lane_collect(
         lane_dispatch_compact(p1u16, bitw, lens, device, bits_per_byte)
     )

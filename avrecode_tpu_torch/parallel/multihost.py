@@ -34,7 +34,11 @@ def init_distributed(coordinator, num_processes, process_id,
     ranks.pick_backend; under nccl the rank's card becomes the current
     device (local_device_ids[0] where given, else ranks.rank_device).
     Collectives and the rendezvous time out after ranks.TIMEOUT_S.  Returns
-    the backend."""
+    the backend.
+
+    A rank that joined must call shutdown_distributed() when its work is
+    done: a process that exits with the group (and, on rank 0, the
+    rendezvous store) still alive can abort in interpreter shutdown."""
     import datetime
 
     import torch
@@ -54,6 +58,17 @@ def init_distributed(coordinator, num_processes, process_id,
         timeout=datetime.timedelta(seconds=ranks.TIMEOUT_S),
     )
     return backend
+
+
+def shutdown_distributed():
+    """Leave the default process group: a barrier, so that no rank tears
+    the group down under another's collective, then
+    destroy_process_group().  Does nothing when no group is initialised."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def mesh_all_hosts(dp_per_host=None):

@@ -5,7 +5,8 @@ Counterpart of avrecode_tpu/parallel/pipeline.py:
   host   — container demux + slice parse + trace extraction (the
            native extractor, or the Python reference parser),
   device — substream_bins > 0: the lane-parallel estimator-free coder
-           (ops/lane_coder.py) and the on-device finalize;
+           with the finalize fused in (ops/lane_coder.py,
+           lane_encode_streams);
            substream_bins = 0: the adaptive model and the range coder
            (ops/est_coder.py), one trace per thread.  The CUDA kernel runs
            on a card, the plain torch version on the CPU,
@@ -60,8 +61,6 @@ from ..ops.lane_coder import (
     encode_traces_lanes,
     lane_collect,
     lane_dispatch_compact,
-    lane_finalize_launched,
-    lane_launch_compact,
     pack_lanes,
 )
 from ..utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
@@ -139,9 +138,8 @@ def _mesh_lane_encoder(mesh):
     no collective.
 
     Every non-empty shard is uploaded to its device and coded there by
-    lane_encode, each on a stream of its own, before any shard is
-    finalized (the finalize waits for its shard's kernel); then every shard
-    is finalized on its device, and all are read back in order."""
+    lane_encode_streams, each on a stream of its own and none waiting for
+    the host; then all are read back in order."""
     mesh = check_mesh(mesh)
 
     def encode(p1u16, bitw, lens):
@@ -152,15 +150,11 @@ def _mesh_lane_encoder(mesh):
                                                         len(mesh)))
             if hi > lo
         ]
-        launched = []
+        pending = []
         for dev, stream, lo, hi in work:
             with on_shard(stream):
-                launched.append(lane_launch_compact(
+                pending.append(lane_dispatch_compact(
                     p1u16[lo:hi], bitw[lo:hi], lens[lo:hi], dev))
-        pending = []
-        for (_, stream, _, _), handles in zip(work, launched):
-            with on_shard(stream):
-                pending.append(lane_finalize_launched(handles))
         streams = []
         for (_, stream, _, _), handles in zip(work, pending):
             with on_shard(stream):

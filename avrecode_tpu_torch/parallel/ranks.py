@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
-from .multihost import init_distributed
+from .multihost import init_distributed, shutdown_distributed
 
 TIMEOUT_S = 300  # of a collective, and of the rendezvous
 
@@ -199,8 +199,7 @@ def _rank_main(fn, rank, world, device, workdir, started, args):
             device=device)
         start_s = time.time() - started
         result = fn(rank, world, device, *args)
-        dist.barrier()
-        dist.destroy_process_group()
+        shutdown_distributed()
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump({"result": result, "backend": backend,
                          "start_s": start_s}, f)

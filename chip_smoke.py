@@ -13,16 +13,27 @@ Phases; any failure raises and the script exits non-zero:
              card tensors, exact, over random lanes with ragged lens (0, 1,
              a tile of 128 bins less one, a tile, a tile and one, ...):
              lane counts that are no multiple of a warp's 16, widths that are no
-             multiple of the tile, a carry-stress case, and the
-             overflow-finalize path
-  4 main     device_compress on the pinned clips at gop scope and
-             B in (4096, 16384): byte-identical to codec.compress and
-             roundtripping through both decoders; device_compress_corpus
-             equal to the per-file results; the kernel must have launched
+             multiple of the tile, a carry-stress case.  Then
+             lane_encode_streams (the fused CUDA kernel) vs
+             lane_encode_streams_plain and vs the host finalize of
+             lane_encode's tokens, exact on every lane's out[:nbytes], on
+             nbytes and on total: those problems, carry stress at B of 64,
+             257 and 4096, runs of 0xFF longer than the kernel's staging
+             ring with one carry through them into position 0, lens of 0,
+             1 and B, 1, 15, 17 and 1,000 lanes, bits_per_byte of 1, 4 and
+             1000.  Then the overflow path: dense streams past the bound
+             are coded again by lane_encode and finalized on the host
+  4 main     device_compress on the pinned clips (a CAVLC one among them)
+             at gop scope and B in (4096, 16384): byte-identical to
+             codec.compress and roundtripping through both decoders;
+             device_compress_corpus equal to the per-file results; every
+             call launched lane_encode_streams and none lane_encode
   5 full     one full dispatch group, [8192, 16384] lanes tiled from the
-             clips' real (bit, p1) traces, kernel vs plain: equal tokens
-             and streams, both timed with CUDA events, the kernel's time
-             beside its bound from the byte count
+             clips' real (bit, p1) traces: lane_encode vs plain (equal
+             tokens) and lane_encode_streams vs plain (equal streams), all
+             timed with CUDA events, each kernel's time beside its bounds;
+             lane_streams_device_compact whole and stage by stage (upload,
+             kernel, read-back, slicing)
   6 kernel   est_encode (CUDA kernel) vs est_encode_plain on the same card
              tensors, exact: random traces over all key classes, the
              skewed carry stress, invalid bins inside traces, 4,096 slots,
@@ -38,14 +49,14 @@ Phases; any failure raises and the script exits non-zero:
              encode_traces_est call; kernel vs plain on that problem:
              equal tokens, both timed with CUDA events, the kernel's time
              beside its bound; the kernel alone on the longest gop trace
-             and on the longest slice trace replicated 1 to 4,096 times
+             and on the longest slice trace replicated 1, 128 and 1,024 times
   9 kernel   lane_decode (CUDA kernel) vs lane_decode_plain on the same card
              tensors, exact: the phase-3 problems encoded on the card by
              lane_encode + finalize and decoded again (bits equal to the
              bits that went in), lane counts off a warp's 16, widths off
              the 128-bin tile, streams of 0-3 bytes, random bytes with
              p1 = 0 and 0xFFFF, and lanes of more than 65,536 bins
-  10 main    device_decompress on containers of the six pinned clips (gop
+  10 main    device_decompress on containers of three pinned clips (gop
              scope, B = 4096), and for two of them a v1 container and a
              slice-scope one with B = 512: equal to the original file and
              to codec.decompress; the decode kernel must have launched;
@@ -65,7 +76,7 @@ Phases; any failure raises and the script exits non-zero:
              once.  Then phase 5's [8192, 16384] group through the mesh
              encoder with n = 4: streams equal to the single launch's, the
              whole call on the host clock and the kernels by CUDA events
-             beside the unsharded call's, and the stage split of both.
+             beside the unsharded call's, and dispatch and drain of both.
              Where the machine has more than one card, also make_mesh()
              over the distinct cards
   13 ranks   dryrun_multichip(4) on the card (its own asserts);
@@ -115,13 +126,15 @@ CLIPS = ["rt_ctr.mkv", "mbaff_b.mkv", "rt_ctr.ts", "rt_ctr.avi",
          "rt_ctr.flv", "rt_ctr.mpg"]
 FULL_L, FULL_B = 8192, 16384  # one full dispatch group at the bench's B
 EST_S = 1024  # traces of the phase-8 est problem
-EST_SCALING = (1, 32, 128, 1024, 4096)  # copies of one trace, kernel alone
+EST_SCALING = (1, 128, 1024)  # copies of one trace, kernel alone
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet): memory
 # rate, and integer operations at half the 67 TFLOP/s float32 rate (an SM
 # has half as many int32 lanes as float32 lanes)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
 LANE_OPS_PER_BIN = 30  # integer operations of one lane_encode bin
+STREAM_OPS_PER_BIN = 40  # of one lane_encode_streams bin: the coder's 30,
+# two byte stores, the position and the last-flushable update
 EST_OPS_PER_BIN = 150  # and of one est_encode bin
 DECODE_OPS_PER_BIN = 20  # and of one lane_decode bin
 # dependent instructions of one lane_decode bin (shift, multiply, compare
@@ -130,19 +143,33 @@ DECODE_OPS_PER_BIN = 20  # and of one lane_decode bin
 # whatever the lane count
 DECODE_CHAIN_CYCLES = 53
 SM_CLOCK_HZ = 1.98e9
-# (clip, scope, substream_bins) of the phase-10 containers; 0 = v1
+MAIN_CLIPS = CLIPS + ["cavlc_ipp.mkv"]  # phase 4: a CAVLC stream too
 MESH_SHARDS = (1, 2, 4, 7)  # shard counts of phase 12 on one card
 MESH_FULL = 4  # shards of the full group, and of the est path
 MESH_B = 4096
 EST_MESH_CASES = [(c, s) for c in ("rt_ctr.mkv", "mbaff_b.mkv")
                   for s in ("slice", "gop")]
-DECODE_CONTAINERS = [(c, "gop", 4096) for c in CLIPS] + [
+# (clip, scope, substream_bins) of the phase-10 containers; 0 = v1
+DECODE_CONTAINERS = [(c, "gop", 4096) for c in CLIPS[:3]] + [
     ("rt_ctr.mkv", "gop", 0), ("mbaff_b.mkv", "gop", 0),
     ("rt_ctr.mkv", "slice", 512), ("mbaff_b.mkv", "slice", 512)]
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+class PhaseClock:
+    """Logs what each phase of the run took on the host clock."""
+
+    def __init__(self):
+        self.t0 = self.last = time.time()
+
+    def mark(self, phase):
+        now = time.time()
+        log(f"phase {phase}: {now - self.last:.1f} s "
+            f"({now - self.t0:.1f} s since the start)")
+        self.last = now
 
 
 def card_line():
@@ -155,19 +182,78 @@ def card_line():
     return res.stdout.strip()
 
 
+def ffrun_lanes(L, B, rng):
+    """(p1 [L, B], bits [L, B]) whose streams hold the longest carry walks
+    a range coder can make.  Every lane keeps the point 0.5 strictly inside
+    its interval for as long as it can, by choosing each bin's p1 and bit
+    (the cut just beside the point; a byte every two or three bins): its
+    stream is 0x7F and then one 0xFF after another.  Lane l does so for
+    l / (L - 1) of its bins (lane 0 for none, the last lane to its end),
+    then takes the side above the point where one fits: a
+    carry that ripples through the whole run, across everything a kernel
+    has stored already, into position 0; the bins after it are random.  A
+    lane still on the point when its bins end gets that carry from its
+    flush."""
+    none = 1 << 40
+    low = np.zeros(L, np.int64)
+    rng_ = np.full(L, 0xFFFFFFFF, np.int64)
+    point = np.full(L, 1 << 31, np.int64)  # in the coder's shifted coordinates
+    held = np.ones(L, bool)  # the lane still holds the point
+    cross_at = np.arange(L) * B // max(L - 1, 1)
+    p1 = rng.integers(1, 1 << 16, (L, B)).astype(np.int64)
+    bits = rng.random((L, B)) * 65536 < p1
+    for i in range(B):
+        at = ((point - low) << 16) // rng_  # the point, in p1's units
+        cands = [np.full(L, 0x8000, np.int64), np.clip(at + 2, 1, 0xFFFF),
+                 np.clip(at - 2, 1, 0xFFFF)]
+        # holding: the narrowest side that still holds the point, but no
+        # narrower than 1/512 of the interval
+        best = np.full(L, none, np.int64)
+        for cand in cands:
+            r1 = (rng_ >> 16) * cand
+            split = low + r1
+            width = np.where((low < point) & (point < split), r1,
+                             np.where((split < point) & (point < low + rng_),
+                                      rng_ - r1, none))
+            take = (held & (i < cross_at) & (width < best)
+                    & (width >= rng_ >> 9))
+            best = np.where(take, width, best)
+            p1[take, i] = cand[take]
+            bits[take, i] = (point < split)[take]
+        # crossing: the upper side of a cut above the point, where one fits
+        r1 = (rng_ >> 16) * cands[1]
+        cross = held & (best == none) & (low + r1 > point)
+        p1[cross, i] = cands[1][cross]
+        bits[cross, i] = False
+        held &= ~cross
+        # one coder step (the plain version's arithmetic)
+        r1 = (rng_ >> 16) * p1[:, i]
+        low = np.where(bits[:, i], low, low + r1) & 0xFFFFFFFF
+        rng_ = np.where(bits[:, i], r1, rng_ - r1)
+        for _ in range(2):
+            shift = rng_ < (1 << 24)
+            low = np.where(shift, (low << 8) & 0xFFFFFFFF, low)
+            rng_ = np.where(shift, (rng_ << 8) & 0xFFFFFFFF, rng_)
+            point = np.where(shift & held, 1 << 32, point)
+    return p1, bits
+
+
 def lanes(kind, L, B, seed):
     """Compact lane problem (uint16 p1, int32 bit words, int32 lens) from a
     seed.  lens are ragged: B, 0, 1, B-1, the kernel's tile and 8-bin group
     edges, then random in [0, B].  "zero": random, with p1 = 0 on 1% of the
     bins (no model gives it; the coder's range collapses to 0).  "carry":
     p1 near 0xFFFF with 30% of bins coded against it (pending carries and
-    0xFF byte runs)."""
+    0xFF byte runs).  "ffrun": ffrun_lanes, every lane with all its bins
+    (runs of 0xFF as long as the stream, one carry through each)."""
     rng = np.random.default_rng(seed)
     if kind in ("random", "zero"):
         p1 = rng.integers(1, 1 << 16, (L, B), dtype=np.int32)
         bits = rng.random((L, B), dtype=np.float32) * 65536 < p1
         if kind == "zero":
             p1[rng.random((L, B), dtype=np.float32) < 0.01] = 0
+    elif kind == "ffrun":
+        p1, bits = ffrun_lanes(L, B, rng)
     else:
         p1 = rng.integers(0xFFF0, 1 << 16, (L, B), dtype=np.int32)
         bits = rng.random((L, B), dtype=np.float32) > 0.3
@@ -175,6 +261,8 @@ def lanes(kind, L, B, seed):
     special = [n for n in (B, 0, 1, B - 1, 127, 128, 129, 7, 8, 9, 31, 32,
                            33, 255, 256, 257) if 0 <= n <= B][:L]
     lens[: len(special)] = special
+    if kind == "ffrun":
+        lens[:] = B
     bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
     return p1.astype(np.uint16), bitw, lens
 
@@ -211,20 +299,99 @@ def phase_kernel_vs_plain(dev, cases):
     return worst
 
 
+def streams_diff(got, ref, M):
+    """Largest absolute difference between two (out, nbytes, total) over
+    what is specified: total everywhere; nbytes and out[l, :nbytes[l]] on
+    the lanes that stayed inside the bound."""
+    inside = ref[2] <= M
+    err = int((got[2].long() - ref[2].long()).abs().max())
+    if bool(inside.any()):
+        err = max(err, int((got[1].long() - ref[1].long())[inside].abs().max()))
+        idx = torch.arange(M, device=ref[0].device)[None, :]
+        live = (idx < ref[1][:, None]) & inside[:, None]
+        err = max(err, int(((got[0].long() - ref[0].long()).abs() * live).max()))
+    return err
+
+
+# (kind, L, B, lens cut to, bits_per_byte) of phase 3's fused-kernel cases
+STREAM_CASES = [
+    ("random", 1, 256, None, 4), ("random", 5, 32, None, 4),
+    ("random", 33, 96, None, 4), ("random", 70, 160, None, 4),
+    ("random", 31, 4128, None, 4), ("random", 1000, 4096, None, 4),
+    ("random", 15, 512, None, 1), ("random", 17, 512, None, 1000),
+    ("carry", 1000, 4096, None, 1), ("carry", 1000, 4096, None, 4),
+    ("carry", 97, 1184, None, 1), ("carry", 50, 64, None, 1),
+    ("carry", 50, 288, 257, 1), ("carry", 40, 4096, None, 1000),
+    ("zero", 40, 512, None, 1), ("ffrun", 64, 4096, None, 1),
+    ("ffrun", 9, 8192, None, 1), ("ffrun", 33, 2048, None, 4),
+]
+
+
+def phase_streams_vs_plain(dev, cases):
+    """lane_encode_streams vs lane_encode_streams_plain on the same card
+    tensors, and vs finalize_lanes (host) of lane_encode's tokens; returns
+    the largest absolute difference seen (must be 0)."""
+    worst = 0
+    made = None  # the last problem, for the next case on the same lanes
+    for kind, L, B, cut, bpb in cases:
+        if made is None or made[0] != (kind, L, B, cut):
+            p1u16, bitw, lens = lanes(kind, L, B, seed=L + B)
+            if cut is not None:
+                lens = np.minimum(lens, cut)
+            prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
+            host = tlc.finalize_lanes(
+                *(t.cpu().numpy() for t in tlc.lane_encode(*prob)), lens)
+            made = ((kind, L, B, cut), prob, lens, host)
+        _, prob, lens, host = made
+        M = tlc.max_bytes(B, bpb)
+        got = tlc.lane_encode_streams(*prob, M)
+        torch.cuda.synchronize(dev)
+        ref = tlc.lane_encode_streams_plain(*prob, M)
+        err = streams_diff(got, ref, M)
+        worst = max(worst, err)
+        out, nb, tot = (t.cpu().numpy() for t in got)
+        inside = tot <= M
+        host_ok = all(bytes(out[l, : nb[l]]) == host[l]
+                      for l in range(L) if inside[l])
+        walked = sum(s[:1] == b"\x80" and not any(s[1:33])
+                     for s in host) if kind == "ffrun" else 0
+        log(f"streams kernel vs plain {kind} L={L} B={B} lens<={cut or B} "
+            f"bits_per_byte={bpb} (M={M}): max_abs_err={err} lanes inside "
+            f"the bound {int(inside.sum())}/{L}, equal to the host finalize: "
+            f"{host_ok}, stream bytes {int(nb[inside].sum())}, longest "
+            f"{int(tot.max())}"
+            + (f", lanes with a carry walked to position 0: {walked}"
+               if kind == "ffrun" else ""))
+        if err or not host_ok:
+            raise AssertionError(f"fused kernel != plain for {kind} L={L} "
+                                 f"B={B} bits_per_byte={bpb}")
+        if kind == "ffrun" and bpb == 1 and (walked < 2 or not inside.all()):
+            raise AssertionError("the 0xFF-run case made no long carry walk")
+    return worst
+
+
 def phase_overflow(dev, L, B):
-    """Dense streams past the read-back bound take the exact host finalize
-    of the kernel's tokens."""
+    """Dense streams past the byte bound: the group is coded again with
+    lane_encode and finalized exactly on the host.  Returns lane_encode's
+    launches in that call."""
     p1u16, bitw, lens = lanes("random", L, B, seed=7)
     before = tlc.lane_collect.overflows
+    fused, unfused = tlc.lane_encode_streams.launches, tlc.lane_encode.launches
     got = tlc.lane_streams_device_compact(p1u16, bitw, lens, dev,
                                           bits_per_byte=1000)
+    fused = tlc.lane_encode_streams.launches - fused
+    unfused = tlc.lane_encode.launches - unfused
     prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
     ref = tlc.finalize_lanes(*(t.cpu().numpy()
                                for t in tlc.lane_encode_plain(*prob)), lens)
     log(f"overflow finalize: lane_collect.overflows="
-        f"{tlc.lane_collect.overflows} (was {before})")
-    if tlc.lane_collect.overflows <= before or got != ref:
+        f"{tlc.lane_collect.overflows} (was {before}), "
+        f"lane_encode_streams launches {fused}, lane_encode launches "
+        f"{unfused} (the fallback)")
+    if (tlc.lane_collect.overflows != before + 1 or got != ref
+            or (fused, unfused) != (1, 1)):
         raise AssertionError("overflow-finalize path did not match")
+    return unfused
 
 
 def assert_native_extractor(clip, data, scope, want_slots):
@@ -312,43 +479,108 @@ def bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def lane_stage_split(dev, p1u16, bitw, lens, runs=3):
+    """lane_streams_device_compact on one group stage by stage, the device
+    idle between stages (a synchronize after each): ({stage: least ms over
+    the runs}, the streams)."""
+    M = tlc.max_bytes(p1u16.shape[1])
+    n = p1u16.shape[0]
+    best = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        best[name] = min(ms, best.get(name, ms))
+        return res
+
+    for _ in range(runs):
+        prob = timed("upload", lambda: tuple(
+            tlc._upload(a, dev) for a in (p1u16, bitw, lens)))
+        got = timed("kernel", lambda: tlc.lane_encode_streams(*prob, M))
+        back = timed("read-back", lambda: tlc.read_group(n, *got))
+        streams = timed("slicing", lambda: tlc.cut_streams(*back))
+    return best, streams
+
+
 def phase_full_dispatch(dev, clips, L, B, card):
     p1u16, bitw, lens = tiled_problem(clips, L, B)
-    t0 = time.time()
-    streams = tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)
-    e2e = time.time() - t0
+    M = tlc.max_bytes(B)
+    e2e = []
+    for _ in range(3):  # the first call allocates the pinned buffers
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        streams = tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)
+        e2e.append((time.perf_counter() - t0) * 1e3)
     prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
     tlc.lane_encode(*prob)  # warm-up
+    tlc.lane_encode_streams(*prob, M)
     k1 = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
+    s1 = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
     ref = []
     plain = cuda_ms(lambda: ref.append(tlc.lane_encode_plain(*prob)), 1)
-    k2 = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
     raw = ref.pop()
+    plain_fin = cuda_ms(lambda: ref.append(tlc.finalize_device(*raw, M)), 1)
+    s2 = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
+    k2 = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
     got = tlc.lane_encode(*prob)
     err = max_abs_diff(got, raw)
     if err or not all(torch.equal(a, b) for a, b in zip(got, raw)):
         raise AssertionError("full dispatch: kernel tokens != plain tokens")
-    M = tlc.max_bytes(B)
-    plain_streams = tlc.lane_collect(
-        [(L, lens, (*tlc.finalize_device(*raw, M), raw))])
-    if streams != plain_streams:
-        raise AssertionError("full dispatch: kernel streams != plain streams")
+    ref_out, ref_nb, overflow = ref.pop()
+    ref_tot = ((raw[0] >> 16) & 3).sum(dim=1, dtype=torch.int32) + 2
     del raw, got
+    fused = tlc.lane_encode_streams(*prob, M)
+    s_err = streams_diff(fused, (ref_out, ref_nb, ref_tot), M)
+    plain_streams = tlc.cut_streams(*tlc.read_group(L, ref_out, ref_nb,
+                                                    ref_tot))
+    if s_err or bool(overflow) or streams != plain_streams:
+        raise AssertionError("full dispatch: fused kernel streams != plain")
     nbytes = sum(map(len, streams))
-    log(f"full dispatch [{L}, {B}]: kernel and plain tokens and streams "
-        f"equal, {L * B} bins -> {nbytes} bytes; "
-        f"lane_streams_device_compact {e2e:.3f} s host clock = "
-        f"{L * B / e2e:.4g} bins/s end to end")
+    emitted = int(ref_tot.sum())
+    del ref_out, fused
+    log(f"full dispatch [{L}, {B}]: lane_encode = plain (tokens), "
+        f"lane_encode_streams = plain (streams), {L * B} bins -> {nbytes} "
+        f"bytes; lane_streams_device_compact on the host clock, three calls "
+        f"in a row (the first allocates the pinned buffers): "
+        f"{', '.join(f'{t:.1f}' for t in e2e)} ms = "
+        f"{L * B / (min(e2e) / 1e3):.4g} bins/s end to end")
     ms = (k1 + k2) / 2
     # p1 and bit words in, tok and car out, lens/ftok/fcar a lane
     n_bytes = L * B * 2 + L * B // 8 + 2 * L * B * 4 + 3 * L * 4
     bound, by = bound_ms(n_bytes, LANE_OPS_PER_BIN * L * B)
-    log(f"full dispatch timing [{L}, {B}] on {card}: kernel {k1:.3f} / "
+    log(f"full dispatch timing [{L}, {B}] on {card}: lane_encode {k1:.3f} / "
         f"{k2:.3f} ms (mean {ms:.3f} ms), plain {plain:.1f} ms, kernel "
         f"{L * B / (ms / 1e3):.4g} bins/s; bound {bound:.3f} ms by {by} "
-        f"({n_bytes} bytes), the kernel is at {bound / ms:.1%} of it; peak "
-        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return err, ms, plain, bound, by, (streams, p1u16, bitw, lens)
+        f"({n_bytes} bytes), the kernel is at {bound / ms:.1%} of it")
+    s_ms = (s1 + s2) / 2
+    # p1, bit words and lens in; the bytes this data emits, nbytes and total
+    # out
+    s_bytes = L * B * 2 + L * B // 8 + L * 4 + emitted + 2 * L * 4
+    s_bound, s_by = bound_ms(s_bytes, STREAM_OPS_PER_BIN * L * B)
+    chain = B * DECODE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    log(f"full dispatch timing [{L}, {B}] on {card}: lane_encode_streams "
+        f"{s1:.3f} / {s2:.3f} ms (mean {s_ms:.3f} ms, "
+        f"{L * B / (s_ms / 1e3):.4g} bins/s), plain {plain + plain_fin:.1f} "
+        f"ms (encode {plain:.1f} + finalize {plain_fin:.1f}); bound "
+        f"{s_bound:.3f} ms by {s_by} ({s_bytes} bytes, "
+        f"{s_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms of them), the kernel is "
+        f"at {s_bound / s_ms:.1%} of it; a lane's chain floor ({B} bins x "
+        f"{DECODE_CHAIN_CYCLES} cycles) {chain:.3f} ms, the kernel is at "
+        f"{chain / s_ms:.1%} of that; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    split, staged = lane_stage_split(dev, p1u16, bitw, lens)
+    if staged != streams:
+        raise AssertionError("full dispatch: the staged streams differ")
+    log(f"full dispatch stages [{L}, {B}] on {card}, ms, least of 3, the "
+        f"device idle between stages: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f", sum {sum(split.values()):.2f}")
+    lane = (err, ms, plain, bound, by)
+    fused = (s_err, s_ms, plain + plain_fin, s_bound, s_by)
+    return lane, fused, (streams, p1u16, bitw, lens)
 
 
 SWEEP_LIMITS = (0x7FFF, 0x7FFE, 0x4000, 0x1000, 0x100, 0x60, 3, 0)
@@ -752,7 +984,9 @@ def phase_decode_full(dev, group, card):
         f"floor {n * DECODE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.3f} ms")
 
     step, args = graft_entry.entry(dev)
+    before = tlc.lane_encode.launches
     out, nbytes, overflow = step(*args)
+    entry_launches = tlc.lane_encode.launches - before
     raw = [t.cpu().numpy() for t in tlc.lane_encode(*args)]
     want = tlc.finalize_lanes(*raw, args[2].cpu().numpy())
     out, nbytes = out.cpu().numpy(), nbytes.cpu().numpy()
@@ -760,8 +994,9 @@ def phase_decode_full(dev, group, card):
                                   for l in range(len(want))]:
         raise AssertionError("entry(): the step's bytes != finalize_lanes")
     log(f"entry(): step on the card equals finalize_lanes "
-        f"({sum(map(len, want))} bytes in {len(want)} lanes)")
-    return err, ms, plain, bound, by
+        f"({sum(map(len, want))} bytes in {len(want)} lanes), lane_encode "
+        f"launches {entry_launches}")
+    return err, ms, plain, bound, by, entry_launches
 
 
 def nonempty_shards(n_rows, n):
@@ -770,8 +1005,8 @@ def nonempty_shards(n_rows, n):
 
 def phase_mesh_main_path(dev, clips):
     """device_compress(mesh=...) with several shards on card 0, both paths,
-    and the sharded decode; returns the three kernels' launches in the
-    meshed calls."""
+    and the sharded decode; returns the launches of lane_encode_streams,
+    est_encode and lane_decode in the meshed calls."""
     counts = [0, 0, 0]  # launches of the meshed calls alone
     B = MESH_B
     for clip in clips:
@@ -783,12 +1018,12 @@ def phase_mesh_main_path(dev, clips):
         traces = extract_traces(data, scope="gop", want_slots=False)[3]
         L = tlc.pack_lanes(traces, B)[0].shape[0]
         for n in MESH_SHARDS:
-            before = tlc.lane_encode.launches
+            before = tlc.lane_encode_streams.launches
             t0 = time.time()
             out = device_compress(data, mesh=make_mesh(n, device=dev),
                                   scope="gop", substream_bins=B)
             dt = time.time() - t0
-            grew = tlc.lane_encode.launches - before
+            grew = tlc.lane_encode_streams.launches - before
             counts[0] += grew
             if out != want:
                 raise AssertionError(f"{clip} n={n}: mesh != no mesh")
@@ -841,7 +1076,7 @@ def phase_mesh_main_path(dev, clips):
                                  f"launches")
         log(f"mesh decode n={n}: {len(lens)} lanes, {grew} launches, equal "
             f"to the unsharded call and to the input bits")
-    log(f"mesh main path: lane_encode.launches={counts[0]} "
+    log(f"mesh main path: lane_encode_streams.launches={counts[0]} "
         f"est_encode.launches={counts[1]} lane_decode.launches={counts[2]}")
     if min(counts) <= 0:
         raise AssertionError("a mesh path never launched its kernel")
@@ -849,9 +1084,10 @@ def phase_mesh_main_path(dev, clips):
 
 
 def staged_ms(dev, shards, streams_cuda):
-    """The lane path stage by stage on the given row shards (one: the
-    unsharded call), the device idle between stages: ms of upload + launch,
-    finalize, read-back, and the stream bytes."""
+    """The lane path in its two phases on the given row shards (one: the
+    unsharded call), the device idle between them: ms of dispatch (upload
+    + launch, every shard) and of the drain (read-back + slicing, every
+    shard), and the stream bytes."""
 
     def timed(fn):
         torch.cuda.synchronize(dev)
@@ -867,11 +1103,10 @@ def staged_ms(dev, shards, streams_cuda):
                 out.append(fn(item))
         return out
 
-    launched, t_launch = timed(lambda: each(
-        lambda rows: tlc.lane_launch_compact(*rows, dev), shards))
-    pending, t_fin = timed(lambda: each(tlc.lane_finalize_launched, launched))
+    pending, t_launch = timed(lambda: each(
+        lambda rows: tlc.lane_dispatch_compact(*rows, dev), shards))
     parts, t_read = timed(lambda: each(tlc.lane_collect, pending))
-    return (t_launch, t_fin, t_read), [s for p in parts for s in p]
+    return (t_launch, t_read), [s for p in parts for s in p]
 
 
 def phase_mesh_full(dev, group, card):
@@ -895,7 +1130,7 @@ def phase_mesh_full(dev, group, card):
         return tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)
 
     times = {"unsharded": [], "mesh": []}
-    before = tlc.lane_encode.launches
+    before = tlc.lane_encode_streams.launches
     for name, fn in (("unsharded", plain_call),
                      ("mesh", lambda: encode(p1u16, bitw, lens))) * 2 + (
                          ("unsharded", plain_call),):
@@ -904,7 +1139,7 @@ def phase_mesh_full(dev, group, card):
         if streams != want:
             raise AssertionError(f"full group, {name}: streams differ from "
                                  f"phase 5's")
-    if tlc.lane_encode.launches - before != 3 + 2 * n:
+    if tlc.lane_encode_streams.launches - before != 3 + 2 * n:
         raise AssertionError("full group: unexpected launch count")
     log(f"mesh full group [{L}, {B}] n={n} on {card}: streams equal the "
         f"single launch's; whole call on the host clock, in turns, ms: "
@@ -912,6 +1147,7 @@ def phase_mesh_full(dev, group, card):
         f"mesh {', '.join(f'{t:.1f}' for t in times['mesh'])}")
 
     # the kernels alone: one launch, against n launches on n streams
+    M = tlc.max_bytes(B)
     prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
     ranges = tmesh.shard_ranges(L, n)
     shard_probs = [tuple(t[lo:hi].contiguous() for t in prob)
@@ -923,15 +1159,15 @@ def phase_mesh_full(dev, group, card):
         for s, sp in zip(cuda_streams, shard_probs):
             s.wait_stream(here)
             with torch.cuda.stream(s):
-                tlc.lane_encode(*sp)
+                tlc.lane_encode_streams(*sp, M)
         for s in cuda_streams:
             here.wait_stream(s)
 
     sharded_kernels()  # warm-up
-    one = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
+    one = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
     many = cuda_ms(sharded_kernels, 5)
-    one2 = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
-    log(f"mesh full group kernels on {card}: one launch {one:.3f} / "
+    one2 = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
+    log(f"mesh full group lane_encode_streams on {card}: one launch {one:.3f} / "
         f"{one2:.3f} ms, {n} launches on {n} streams {many:.3f} ms")
     del prob, shard_probs
 
@@ -941,9 +1177,9 @@ def phase_mesh_full(dev, group, card):
     if s1 != want or s2 != want:
         raise AssertionError("full group: the staged streams differ")
     for name, sp in (("unsharded", split_one), (f"mesh n={n}", split_n)):
-        log(f"mesh full group stages, {name}, on {card}, ms (the device "
-            f"idle between stages): upload + launch {sp[0]:.2f}, finalize "
-            f"{sp[1]:.2f}, read-back {sp[2]:.2f}, sum {sum(sp):.2f}")
+        log(f"mesh full group phases, {name}, on {card}, ms (the device "
+            f"idle between them): dispatch (upload + launch) {sp[0]:.2f}, "
+            f"drain (read-back + slicing) {sp[1]:.2f}, sum {sum(sp):.2f}")
 
     if torch.cuda.device_count() > 1:
         cards = make_mesh()
@@ -1097,6 +1333,7 @@ def main():
         raise RuntimeError("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    clock = PhaseClock()
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -1111,29 +1348,38 @@ def main():
         host_lib = host.result()
     if host_lib is None or not native.available():
         raise RuntimeError("libavtpu.so was not built (make and g++ needed)")
-    log(f"build: lane_encode, est_encode and lane_decode kernels {t_k:.1f} s "
+    log(f"build: lane_encode, lane_encode_streams, est_encode and "
+        f"lane_decode kernels {t_k:.1f} s "
         f"({_build.library_path().name}); {host_lib.name} ready after "
         f"{time.time() - t0:.1f} s")
     log(_build.build_log().strip())
+    clock.mark("1-2 device and build")
 
     # 3 kernel vs plain on the card
     err = phase_kernel_vs_plain(dev, [
         ("random", 1, 256), ("random", 5, 32), ("random", 33, 96),
         ("random", 70, 160), ("random", 31, 4128), ("random", 1000, 4096),
         ("carry", 1000, 4096), ("carry", 97, 1184), ("zero", 40, 512)])
-    phase_overflow(dev, 1000, 4096)
+    s_err = phase_streams_vs_plain(dev, STREAM_CASES)
+    overflow_lane = phase_overflow(dev, 1000, 4096)
+    clock.mark("3 lane kernels vs plain")
 
-    # 4 main path; the launch count covers exactly this phase
-    tlc.lane_encode.launches = 0
-    phase_main_path(dev, (4096, 16384), CLIPS)
-    launches = tlc.lane_encode.launches
-    log(f"main path: lane_encode.launches={launches}")
-    if launches <= 0:
-        raise AssertionError("main path never launched the lane_encode kernel")
+    # 4 main path; the launch counts cover exactly this phase: one fused
+    # launch a device_compress call and a corpus call, none of lane_encode
+    tlc.lane_encode_streams.launches = tlc.lane_encode.launches = 0
+    phase_main_path(dev, (4096, 16384), MAIN_CLIPS)
+    launches = tlc.lane_encode_streams.launches
+    log(f"main path: lane_encode_streams.launches={launches}, "
+        f"lane_encode.launches={tlc.lane_encode.launches}")
+    if launches != 2 * (len(MAIN_CLIPS) + 1) or tlc.lane_encode.launches:
+        raise AssertionError("main path: not one lane_encode_streams launch "
+                             "a call, or lane_encode launched")
 
-    # 5 full-size dispatch: the kernel against plain at full width and depth
-    (full_lane_err, ms, plain_ms, lane_bound, lane_by,
+    # 5 full-size dispatch: both kernels against plain at full width and depth
+    ((full_lane_err, ms, plain_ms, lane_bound, lane_by),
+     (full_s_err, s_ms, s_plain_ms, s_bound, s_by),
      full_group) = phase_full_dispatch(dev, CLIPS, FULL_L, FULL_B, card)
+    clock.mark("4-5 lane main path and full group")
 
     # 6 est kernel vs plain on the card
     est_err = phase_est_kernel_vs_plain(dev, EST_CASES + [EST_SWEEP])
@@ -1149,6 +1395,7 @@ def main():
     # 8 est full size
     full_err, est_ms, est_plain_ms, est_bound, est_by = phase_est_full(
         dev, CLIPS, EST_S, card)
+    clock.mark("6-8 est path")
 
     # 9 decode kernel vs plain on the card
     dec_err = phase_decode_kernel_vs_plain(dev, [
@@ -1162,27 +1409,33 @@ def main():
     dec_launches = phase_decode_main_path(dev, DECODE_CONTAINERS)
 
     # 11 decode at full size
-    dec_full_err, dec_ms, dec_plain_ms, dec_bound, dec_by = phase_decode_full(
-        dev, full_group, card)
+    (dec_full_err, dec_ms, dec_plain_ms, dec_bound, dec_by,
+     entry_lane) = phase_decode_full(dev, full_group, card)
+    clock.mark("9-11 decode direction")
 
     # 12 the mesh: one process, several shards on the card
     mesh_lane, mesh_est, mesh_dec = phase_mesh_main_path(dev, CLIPS)
     phase_mesh_full(dev, full_group, card)
     del full_group
+    clock.mark("12 mesh")
 
     # 13 ranks: several processes share the card
     rank_lane, rank_est = phase_ranks(dev, card)
+    clock.mark("13 ranks")
 
     # 14 the command line
     phase_cli()
+    clock.mark("14 command line")
 
-    lane_paths = {"device_compress": launches, "mesh": mesh_lane,
+    lane_paths = {"entry": entry_lane, "overflow_fallback": overflow_lane,
                   "dryrun_multichip": rank_lane}
+    stream_paths = {"device_compress": launches, "mesh": mesh_lane}
     est_paths = {"device_compress": est_launches, "mesh": mesh_est,
                  "multichip_step": rank_est}
     dec_paths = {"device_decompress": dec_launches, "mesh": mesh_dec}
     for name, paths in (("lane_encode", lane_paths), ("est_encode", est_paths),
-                        ("lane_decode", dec_paths)):
+                        ("lane_decode", dec_paths),
+                        ("lane_encode_streams", stream_paths)):
         log(f"{name} launches by main path: {paths}")
         if min(paths.values()) <= 0:
             raise AssertionError(f"{name}: a main path launched it no time")
@@ -1226,6 +1479,20 @@ def main():
         "bound_ms": dec_bound,
         "bound_by": dec_by,
         "library_ms": None,  # nor a range decoder
+    }, {
+        "name": "lane_encode_streams",
+        "route": "cuda",
+        "source": "avrecode_tpu_torch/csrc/lane_streams.cu",
+        # _lane_pipeline_jit: the Pallas kernel and the XLA finalize
+        "replaces": "avrecode_tpu/ops/lane_coder.py:448",
+        "launches": sum(stream_paths.values()),
+        "launches_by_path": stream_paths,
+        "max_abs_err": max(s_err, full_s_err),
+        "ms": s_ms,
+        "plain_ms": s_plain_ms,
+        "bound_ms": s_bound,
+        "bound_by": s_by,
+        "library_ms": None,  # nor a range coder with its finalize
     }]}))
     print(card)
     # the smoke drives one card, whatever the machine holds

@@ -15,7 +15,9 @@ copy overlaps a kernel).  Not a benchmark: no spread, small pinned clips.
              range check, zero fill, kernel, read-back, finalize, container
   lane path  lane_streams_device_compact on one full dispatch group
              [8192, 16384] tiled from the clips' real traces: upload,
-             kernel, finalize, collect
+             kernel (lane_encode_streams), read-back, slicing; then the
+             ways to bring the group's p1 (268 MB) to the card, and the
+             parts of the read-back
   decode     device_decompress(blob) on containers of rt_ctr.mkv and
              mbaff_b.mkv at gop scope, v2 (B = 4096) and v1: host model
              pass, pack, upload, kernel, read-back, split, host assembly
@@ -33,8 +35,8 @@ from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline
 from avrecode_tpu_torch.utils.container import SCOPE_GOP, SCOPE_SLICE
 from chip_smoke import (
-    CLIPS, FULL_B, FULL_L, ROOT, card_line, decompress_stages, log,
-    tiled_problem)
+    CLIPS, FULL_B, FULL_L, ROOT, card_line, decompress_stages,
+    lane_stage_split, log, tiled_problem)
 
 RUNS = 3
 
@@ -133,16 +135,11 @@ def est_stages(dev, clip, scope):
 
 def lane_stages(dev):
     p1u16, bitw, lens = tiled_problem(CLIPS, FULL_L, FULL_B)
-    M = tlc.max_bytes(FULL_B)
+    tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)  # pinned buffers
+    best, parts = lane_stage_split(dev, p1u16, bitw, lens, RUNS)
     st = Stages()
+    st.best = best
     for _ in range(RUNS):
-        prob = st.time("upload", lambda: tuple(
-            tlc._upload(a, dev) for a in (p1u16, bitw, lens)))
-        raw = st.time("kernel", lambda: tlc.lane_encode(*prob))
-        fin = st.time("finalize", lambda: tlc.finalize_device(*raw, M))
-        parts = st.time("collect", lambda: tlc.lane_collect(
-            [(FULL_L, lens, (*fin, raw))]))
-        del raw, fin
         whole = st.time("lane_streams_device_compact", lambda:
                         tlc.lane_streams_device_compact(p1u16, bitw, lens, dev))
         if parts != whole:
@@ -152,6 +149,45 @@ def lane_stages(dev):
     log(f"lane stages [{FULL_L}, {FULL_B}], ms: {st.line()}; profiled call "
         f"{wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
         f"{1 - busy / wall:.1%}")
+
+
+def lane_transfer_parts(dev):
+    """What the upload and the read-back of the full group are made of:
+    p1 to the card from pageable memory, through a fresh pinned copy, the
+    host copy and the bus apart, and through the staging ring; then the
+    lengths, the strided copy into pinned memory, and tobytes()."""
+    p1u16, bitw, lens = tiled_problem(CLIPS, FULL_L, FULL_B)
+    src = torch.from_numpy(p1u16)
+    mb = src.numel() * src.element_size() / 1e6
+    pinned = torch.empty_like(src).pin_memory()
+    dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    st = Stages()
+    for _ in range(RUNS):
+        st.time("pageable .to(device)", lambda: src.to(dev))
+        st.time("fresh pin_memory() copy, then the bus",
+                lambda: src.pin_memory().to(dev, non_blocking=True))
+        st.time("host copy into pinned memory", lambda: pinned.copy_(src))
+        st.time("the bus, from pinned memory",
+                lambda: dst.copy_(pinned, non_blocking=True))
+        st.time("staging ring (lane_coder._upload)",
+                lambda: tlc._upload(p1u16, dev))
+    log(f"lane upload of p1 ({mb:.0f} MB, {torch.get_num_threads()} host "
+        f"threads), ms: {st.line()}; MB/ms: "
+        + ", ".join(f"{mb / v:.1f}" for v in st.best.values()))
+    del pinned, dst
+    out, nbytes, total = tlc.lane_encode_streams(
+        *tlc.from_numpy_problem(p1u16, bitw, lens, dev), tlc.max_bytes(FULL_B))
+    st = Stages()
+    for _ in range(RUNS):
+        nb = st.time("lengths .cpu()", lambda: torch.stack(
+            [nbytes, total]).cpu().numpy()[0])
+        w = int(nb.max())
+        host = torch.empty((FULL_L, w), dtype=torch.uint8).pin_memory()
+        st.time("strided copy into pinned memory",
+                lambda: host.copy_(out[:, :w], non_blocking=True))
+        st.time("tobytes()", lambda: host.numpy().tobytes())
+    log(f"lane read-back parts ({FULL_L} x {w} bytes, {int(nb.sum())} of "
+        f"them stream bytes), ms: {st.line()}")
 
 
 def decode_stages(dev, clip, B):
@@ -191,6 +227,7 @@ def main():
         for scope in ("slice", "gop"):
             est_stages(dev, clip, scope)
     lane_stages(dev)
+    lane_transfer_parts(dev)
     for clip in ("rt_ctr.mkv", "mbaff_b.mkv"):
         for B in (4096, 0):
             decode_stages(dev, clip, B)

@@ -5,15 +5,22 @@ package, on one GPU.
     python3 chip_variants.py NAME=path/to/variant.cu[,-DFLAG...] ...
 
 A variant is any source with the launcher of the kernel it varies:
-`lane_encode_launch`, `est_encode_launch` or `lane_decode_launch`, with the
-signature of avrecode_tpu_torch/csrc (which of the three is read from NAME:
-it starts with "lane", "est" or "decode").  Every variant is built with nvcc (sm_90a), all at
+`lane_encode_launch`, `lane_encode_streams_launch`, `est_encode_launch` or
+`lane_decode_launch`, with the signature of avrecode_tpu_torch/csrc (which
+of the four is read from NAME: it starts with "lane", "streams", "est" or
+"decode").  Every variant is built with nvcc (sm_90a), all at
 once; its outputs are held against the package's kernel on the same
-tensors (exact), and both are timed with CUDA events, two windows each:
+tensors (exact), and both are timed with CUDA events, two windows each.  A
+variant whose NAME holds "ablate" is one with a piece taken out on purpose
+(csrc/lane_streams.cu has -DSTREAMS_NO_SETTLE and -DSTREAMS_NO_RING): it is
+timed, and its wrong output is reported but not refused.
 
   lane  one full dispatch group [8192, 16384] and the first 55 lanes of it
         (the pinned clips' real traces, tiled), and 1,000 ragged
         carry-stress lanes of 4,096 bins
+  streams  the lane problems, through the fused kernel (M = B / 4 + 8;
+        B + 8 on the carry-stress lanes); a variant must give the package
+        kernel's nbytes, total and out[l, :nbytes[l]]
   est   the clips' longest slice trace alone and 128 times, and the clips'
         slice traces replicated to 1,024
   decode  the streams of that full dispatch group and of its first 55
@@ -38,7 +45,7 @@ from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.ops import lane_decoder as tld
 from chip_smoke import (
     CLIPS, ROOT, card_line, cuda_ms, decode_problem, lanes, log,
-    one_long_lane, tiled_problem)
+    one_long_lane, streams_diff, tiled_problem)
 
 PTR = ctypes.c_void_p
 OUT_DIR = os.path.join(ROOT, "build", "variants")
@@ -76,6 +83,27 @@ def lane_runner(lib):
             raise RuntimeError(f"lane_encode_launch: cudaError {err}")
 
     return run
+
+
+def streams_runner(lib):
+    lib.lane_encode_streams_launch.argtypes = (
+        [PTR] * 6 + [ctypes.c_int] * 3 + [PTR])
+    lib.lane_encode_streams_launch.restype = ctypes.c_int
+
+    def run(prob, out):
+        L, Bp = prob[0].shape
+        err = lib.lane_encode_streams_launch(
+            *(t.data_ptr() for t in (*prob, *out)), L, Bp, out[0].shape[1],
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"lane_encode_streams_launch: cudaError {err}")
+
+    return run
+
+
+def streams_equal(out, ref):
+    """Two (out, nbytes, total): equal where the bytes are specified."""
+    return streams_diff(out, ref, out[0].shape[1]) == 0
 
 
 def est_runner(lib):
@@ -119,8 +147,9 @@ def decode_runner(lib):
     return run
 
 
-def compare(kind, problems, runners, make_out, steps):
-    """Run every runner on every problem; the first one is the reference."""
+def compare(kind, problems, runners, make_out, steps, same=None):
+    """Run every runner on every problem; the first one is the reference.
+    same(out, ref): the comparison, where not every byte is specified."""
     for label, prob in problems.items():
         ref = None
         for name, run in runners.items():
@@ -129,12 +158,13 @@ def compare(kind, problems, runners, make_out, steps):
             torch.cuda.synchronize()
             if ref is None:
                 ref = [t.clone() for t in out]
-            equal = all(torch.equal(a, b) for a, b in zip(out, ref))
+            equal = (same(out, ref) if same else
+                     all(torch.equal(a, b) for a, b in zip(out, ref)))
             t1, t2 = (cuda_ms(lambda: run(prob, out), 5) for _ in range(2))
             log(f"{kind} {label} {name}: {t1:.4f} / {t2:.4f} ms, "
                 f"{t1 * 1e3 / steps(prob):.4f} us a bin step, "
                 f"equal to {next(iter(runners))}: {equal}")
-            if not equal:
+            if not equal and "ablate" not in name:
                 raise AssertionError(f"{name} differs on {label}")
 
 
@@ -146,6 +176,7 @@ def main(argv):
     log(card_line())
     csrc = os.path.join(ROOT, "avrecode_tpu_torch", "csrc")
     variants = {"lane_package": (os.path.join(csrc, "lane_encode.cu"), []),
+                "streams_package": (os.path.join(csrc, "lane_streams.cu"), []),
                 "est_package": (os.path.join(csrc, "est_encode.cu"), []),
                 "decode_package": (os.path.join(csrc, "lane_decode.cu"), [])}
     for arg in argv:
@@ -171,6 +202,19 @@ def main(argv):
                 torch.empty(L, dtype=torch.int32, device=dev))
 
     compare("lane", problems, lane, lane_out, lambda p: p[0].shape[1])
+
+    fused = {n: streams_runner(lib) for n, lib in libs.items()
+             if n.startswith("streams")}
+
+    def streams_out(prob):
+        L, Bp = prob[0].shape
+        M = tlc.max_bytes(Bp, 4 if Bp == 16384 else 1)
+        return (torch.zeros((L, M), dtype=torch.uint8, device=dev),
+                torch.empty(L, dtype=torch.int32, device=dev),
+                torch.empty(L, dtype=torch.int32, device=dev))
+
+    compare("streams", problems, fused, streams_out, lambda p: p[0].shape[1],
+            same=streams_equal)
     del problems
 
     decode = {n: decode_runner(lib) for n, lib in libs.items()

@@ -21,7 +21,7 @@ from avrecode_tpu_torch.ops import lane_decoder as tld
 from avrecode_tpu_torch.parallel.pipeline import (
     device_compress, device_decompress, extract_traces, make_mesh,
     multichip_step)
-from chip_smoke import EST_CASES, EST_SWEEP
+from chip_smoke import EST_CASES, EST_SWEEP, STREAM_CASES, streams_diff
 from chip_smoke import decode_problem as _decode_problem
 from chip_smoke import est_problem as _est_problem
 from chip_smoke import lanes as _problem
@@ -59,14 +59,45 @@ def test_kernel_matches_plain(cuda, kind, L, B):
         assert torch.equal(a, b)
 
 
+# chip_smoke's cases of the fused kernel: carry stress, runs of 0xFF longer
+# than the kernel's ring with a carry through them into position 0, lens of
+# 0, 1 and B, lane counts off a warp's 16, bounds that lanes run past
+@pytest.mark.parametrize("kind, L, B, cut, bits_per_byte", STREAM_CASES)
+def test_streams_kernel_matches_plain(cuda, kind, L, B, cut, bits_per_byte):
+    p1u16, bitw, lens = _problem(kind, L, B, seed=L + B)
+    if cut is not None:
+        lens = np.minimum(lens, cut)
+    prob = tlc.from_numpy_problem(p1u16, bitw, lens, cuda)
+    M = tlc.max_bytes(B, bits_per_byte)
+    before = tlc.lane_encode_streams.launches
+    got = tlc.lane_encode_streams(*prob, M)
+    torch.cuda.synchronize()
+    assert tlc.lane_encode_streams.launches == before + 1
+    assert got[0].dtype == torch.uint8 and got[0].shape == (L, M)
+    assert all(t.device.type == "cuda" for t in got)
+    ref = tlc.lane_encode_streams_plain(*prob, M)
+    assert streams_diff(got, ref, M) == 0
+    out, nb, tot = (t.cpu().numpy() for t in got)
+    host = tlc.finalize_lanes(
+        *(t.cpu().numpy() for t in tlc.lane_encode(*prob)), lens)
+    for l in np.flatnonzero(tot <= M):
+        assert bytes(out[l, : nb[l]]) == host[l]
+
+
 def test_kernel_streams_and_overflow_path(cuda):
     p1u16, bitw, lens = _problem("carry", 40, 2048, seed=9)
-    host = tlc.lane_streams_device_compact(p1u16, bitw, lens, "cpu")
-    assert tlc.lane_streams_device_compact(p1u16, bitw, lens, cuda) == host
+    host = tlc.lane_streams_device_compact(p1u16, bitw, lens, "cpu",
+                                           bits_per_byte=1)
+    fused, unfused = tlc.lane_encode_streams.launches, tlc.lane_encode.launches
+    assert tlc.lane_streams_device_compact(p1u16, bitw, lens, cuda,
+                                           bits_per_byte=1) == host
+    assert tlc.lane_encode_streams.launches == fused + 1
+    assert tlc.lane_encode.launches == unfused
     before = tlc.lane_collect.overflows
     dense = tlc.lane_streams_device_compact(p1u16, bitw, lens, cuda,
                                             bits_per_byte=1000)
     assert tlc.lane_collect.overflows == before + 1
+    assert tlc.lane_encode.launches == unfused + 1  # the group, coded again
     assert dense == host
 
 
@@ -74,10 +105,69 @@ def test_main_path_launches_kernel(cuda):
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "rt_ctr.mkv"), "rb").read()
-    before = tlc.lane_encode.launches
+    before = tlc.lane_encode_streams.launches
+    unfused = tlc.lane_encode.launches
     out = device_compress(data, scope="gop", substream_bins=4096, device=cuda)
-    assert tlc.lane_encode.launches > before
+    assert tlc.lane_encode_streams.launches == before + 1
+    assert tlc.lane_encode.launches == unfused
     assert out == codec.compress(data, scope="gop", substream_bins=4096)
+
+
+@pytest.mark.parametrize("ring", [1, 3])
+def test_staging_buffers_are_reused_safely(cuda, monkeypatch, ring):
+    """Three groups of different contents dispatched back to back, and two
+    more on streams of their own, all through `ring` small pinned staging
+    buffers that every upload rewrites many times: each group's streams
+    equal the CPU route's."""
+    monkeypatch.setattr(tlc, "STAGE_RING", ring)
+    monkeypatch.setattr(tlc, "STAGE_BYTES", 1 << 16)
+    monkeypatch.setattr(tlc, "_staging", tlc._Staging())
+    groups = [_problem(kind, 300, 2048, seed=s)
+              for s, kind in enumerate(["random", "carry", "random", "carry",
+                                        "random"])]
+    want = [tlc.lane_streams_device_compact(*g, "cpu", bits_per_byte=1)
+            for g in groups]
+    pending = [tlc.lane_dispatch_compact(*g, cuda, bits_per_byte=1)
+               for g in groups[:3]]
+    streams = [torch.cuda.Stream(cuda) for _ in groups[3:]]
+    for g, s in zip(groups[3:], streams):
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            pending.append(tlc.lane_dispatch_compact(*g, cuda,
+                                                     bits_per_byte=1))
+    assert len(tlc._staging.ring) == ring
+    assert tlc._staging.turn >= 5 * (300 * 2048 * 2 >> 16)
+    for k, (handles, s) in enumerate(zip(pending, [None] * 3 + streams)):
+        if s is None:
+            got = tlc.lane_collect(handles)
+        else:
+            with torch.cuda.stream(s):
+                got = tlc.lane_collect(handles)
+        assert got == want[k], f"group {k}"
+
+
+def test_dispatch_does_not_wait_for_the_device(cuda, monkeypatch):
+    """No host sync between upload and launch: a dispatch whose stream is
+    held up by a long sleep kernel returns before that kernel ends."""
+    p1u16, bitw, lens = _problem("random", 64, 1024, seed=4)
+    tlc.lane_streams_device_compact(p1u16, bitw, lens, cuda)  # build, pin
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(int(2e9))  # about a second of device time
+    done.record()
+    pending = tlc.lane_dispatch_compact(p1u16, bitw, lens, cuda)
+    assert not done.query()  # the dispatch came back while the card slept
+    assert tlc.lane_collect(pending) == tlc.lane_streams_device_compact(
+        p1u16, bitw, lens, "cpu")
+
+
+def test_streams_kernel_rejects_misaligned_p1(cuda):
+    p1u16, bitw, lens = tlc.from_numpy_problem(
+        *_problem("random", 2, 64, seed=1), cuda)
+    flat = torch.zeros(2 * 64 + 1, dtype=torch.uint16, device=cuda)
+    view = flat[1:].view(2, 64)  # contiguous, two bytes off the boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        tlc.lane_encode_streams(view, bitw, lens, 24)
 
 
 def test_lane_kernel_rejects_misaligned_p1(cuda):
@@ -197,8 +287,8 @@ def _cuda_step_rank(rank, world, device, arrays):
 @pytest.mark.parametrize("n", [1, 4, 7])
 def test_mesh_of_streams_on_one_card(cuda, n):
     """n shards on streams of card 0: the bytes of the call without a mesh,
-    one lane_encode launch a non-empty shard; the est path and the sharded
-    decode alike."""
+    one lane_encode_streams launch a non-empty shard; the est path and the
+    sharded decode alike."""
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
@@ -206,9 +296,9 @@ def test_mesh_of_streams_on_one_card(cuda, n):
     assert mesh == (torch.device("cuda", 0),) * n
     traces = extract_traces(data, scope="gop", want_slots=False)[3]
     L = tlc.pack_lanes(traces, 4096)[0].shape[0]
-    before = tlc.lane_encode.launches
+    before = tlc.lane_encode_streams.launches
     out = device_compress(data, mesh=mesh, scope="gop", substream_bins=4096)
-    assert tlc.lane_encode.launches - before == min(n, L)
+    assert tlc.lane_encode_streams.launches - before == min(n, L)
     assert out == codec.compress(data, scope="gop", substream_bins=4096)
     before = tec.est_encode.launches
     est = device_compress(data, mesh=mesh, scope="gop", substream_bins=0)

@@ -5,6 +5,7 @@ numpy and XLA finalize) and the host RecodeModel exactly.  The arithmetic
 is exact integers, so every comparison has tolerance zero.  Inputs are made
 from numpy seeds and handed to both implementations as numpy arrays."""
 
+import inspect
 import random
 
 import numpy as np
@@ -15,6 +16,7 @@ from avrecode_tpu.models.h264_model import RecodeModel
 from avrecode_tpu.models.trace import TraceModel
 from avrecode_tpu.ops import lane_coder as jlc
 from avrecode_tpu_torch.ops import lane_coder as tlc
+from chip_smoke import lanes as _smoke_lanes
 
 CPU = torch.device("cpu")
 
@@ -154,6 +156,110 @@ def test_finalize_device_matches_jax_and_numpy(kind, bits_per_byte):
         assert expect == jlc.finalize_lanes(*toks, lens)
         got = [bytes(out[l, : nbytes[l]].numpy()) for l in range(len(lens))]
         assert got == expect
+
+
+@pytest.mark.parametrize("bits_per_byte", [1, 4, 1000])
+@pytest.mark.parametrize("kind, B", [
+    ("random", 64), ("random", 257), ("random", 1024),
+    ("carry", 64), ("carry", 257), ("carry", 1024), ("ffrun", 1024)])
+def test_streams_match_jax_pipeline(kind, B, bits_per_byte):
+    """lane_encode_streams (its CPU route) against the JAX package's
+    _lane_pipeline_jit with the Pallas kernel in interpret mode: exact on
+    every lane's out[:nbytes], on nbytes and on the overflow flag.
+    "ffrun": one carry through a run of 0xFF as long as the stream, into
+    position 0, from a bin or from the flush."""
+    if kind == "ffrun":
+        p1u16, bitw, lens = _smoke_lanes(kind, 7, B, seed=B)
+    else:
+        p1u16, bitw, lens = tlc.pack_compact(*_lanes(kind, B, seed=B),
+                                             pad_lanes=1)
+    L, Bp = p1u16.shape
+    M = tlc.max_bytes(Bp, bits_per_byte)
+    before = tlc.lane_encode_streams.launches
+    out, nbytes, total = tlc.lane_encode_streams(
+        *tlc.from_numpy_problem(p1u16, bitw, lens, CPU), M)
+    assert tlc.lane_encode_streams.launches == before
+    assert out.dtype == torch.uint8 and out.shape == (L, M)
+    assert nbytes.dtype == total.dtype == torch.int32
+    out, nbytes, total = out.numpy(), nbytes.numpy(), total.numpy()
+
+    pad = -L % jlc.LANES
+    jout, jnb, jov, raw = jlc._lane_pipeline_jit(
+        np.pad(p1u16, ((0, pad), (0, 0))), np.pad(bitw, ((0, pad), (0, 0))),
+        np.pad(lens, (0, pad)), interpret=True, max_bytes=M)
+    toks = [np.asarray(t)[:L] for t in raw]
+    np.testing.assert_array_equal(
+        total, ((toks[0] >> 16) & 3).sum(axis=1) + 2)
+    overflow = bool((total > M).any())
+    assert overflow == bool(jov)
+    if bits_per_byte == 1:
+        assert not overflow
+    if bits_per_byte == 1000 and B >= 257:
+        assert overflow
+    if not overflow:
+        np.testing.assert_array_equal(nbytes, np.asarray(jnb)[:L])
+        jout = np.asarray(jout)
+        got = [bytes(out[l, : nbytes[l]]) for l in range(L)]
+        assert got == [bytes(jout[l, : nbytes[l]]) for l in range(L)]
+        assert got == tlc.finalize_lanes(*toks, lens)
+    if kind == "ffrun" and not overflow:
+        # the case stresses what it claims to: 0x7F 0xFF 0xFF ... became
+        # 0x80 0x00 0x00 ..., on the last lane by the flush's carry alone
+        assert sum(s[:1] == b"\x80" for s in got) >= 3
+        assert got[-1] == b"\x80" and toks[3][-1] == 1
+        assert total[-1] > 300
+
+
+@pytest.mark.parametrize("M", [0, -8, 12, 129])
+def test_streams_wrapper_rejects_bad_bound(M):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tlc.lane_encode_streams(*_good_problem(), M)
+
+
+def test_streams_wrapper_checks_the_problem_and_takes_no_lanes():
+    p, w, l = _good_problem()
+    with pytest.raises(TypeError):
+        tlc.lane_encode_streams(p.to(torch.int32), w, l, 16)
+    with pytest.raises(ValueError):
+        tlc.lane_encode_streams(p.to("meta"), w.to("meta"), l.to("meta"), 16)
+    out, nbytes, total = tlc.lane_encode_streams(p[:0], w[:0], l[:0], 16)
+    assert out.shape == (0, 16) and nbytes.shape == total.shape == (0,)
+    assert tlc.lane_collect([(0, l[:0].numpy(), out, nbytes, total,
+                              (p[:0], w[:0], l[:0]))]) == []
+
+
+def test_dispatch_handles_and_collect_on_cpu():
+    """A pending handle is (rows, lens, out, nbytes, total, inputs); more
+    rows than one group make several; collect gives every lane's bytes."""
+    bitp1, lens = _lanes("carry", 64, seed=2, L=30)
+    p1u16, bitw, lens = tlc.pack_compact(bitp1, lens, pad_lanes=1)
+    want = tlc.finalize_lanes(*_port_tokens(bitp1, lens), lens)
+    old = tlc.GROUP_ROWS
+    tlc.GROUP_ROWS = 8
+    try:
+        pending = tlc.lane_dispatch_compact(p1u16, bitw, lens, "cpu",
+                                            bits_per_byte=1)
+    finally:
+        tlc.GROUP_ROWS = old
+    assert [h[0] for h in pending] == [8, 8, 8, 6]
+    for n, glens, out, nbytes, total, prob in pending:
+        assert out.shape == (n, tlc.max_bytes(256, 1)) and len(glens) == n
+        assert nbytes.shape == total.shape == (n,) and len(prob) == 3
+    assert tlc.lane_collect(pending) == want
+
+
+def test_dispatch_has_no_host_sync():
+    """The only waits for the device on the lane path are in lane_collect
+    (read_group): the dispatch side reads no tensor back.  (A staging
+    buffer's event wait in _Staging._next is a wait for an upload that read
+    the buffer, taken only when every buffer of the ring is in flight.)"""
+    for fn in (tlc.lane_dispatch_compact, tlc.lane_encode_streams,
+               tlc._upload, tlc._Staging.upload):
+        src = inspect.getsource(fn)
+        for sync in (".cpu(", ".item(", "bool(", ".tolist(", ".numpy(",
+                     "synchronize("):
+            assert sync not in src, (fn.__name__, sync)
+    assert ".cpu()" in inspect.getsource(tlc.read_group)
 
 
 def test_overflow_finalize_on_cpu():

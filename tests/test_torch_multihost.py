@@ -6,7 +6,6 @@ byte.  The rank functions run in spawned processes, which import this
 module by name: the JAX package is imported inside the tests only."""
 
 import os
-import socket
 import subprocess
 import sys
 
@@ -23,7 +22,7 @@ GEN = os.path.join(ROOT, "tools", "genvideo")
 CLIPS = ["rt_ctr.mkv", "mbaff_b.mkv", "mid.mp4"]  # 2, 4 and 6 GOPs
 
 # One process of a pair started by hand, as a deployment would start it:
-# argv = rank, coordinator "host:port", mode, clip, output path.
+# argv = rank, rendezvous (a full init method), mode, clip, output path.
 WORKER = r"""
 import sys
 rank, coord, mode, clip, out = sys.argv[1:]
@@ -45,6 +44,7 @@ else:
     assert all(len(f) > 0 for f in frags), "both shards must decode work"
     result = multihost.stitch_decompressed(frags)
 open(out + str(rank), "wb").write(result)
+multihost.shutdown_distributed()
 print(f"proc {rank} OK bytes={len(result)}")
 """
 
@@ -73,9 +73,9 @@ def _needs_native():
 def _run_pair(mode, clip, tmp_path):
     """Both processes' results (they must agree), or a failure with the
     failing process's output."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    # a file rendezvous under the test's own directory: no port to pick,
+    # so no race with another worker's bind-and-close
+    coord = f"file://{tmp_path / 'rendezvous'}"
     out = str(tmp_path / "result")
     procs = [
         subprocess.Popen(

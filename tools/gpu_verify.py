@@ -11,9 +11,11 @@ requires that the CUDA kernel it is about was launched.
 
 Usage: python tools/gpu_verify.py [--out PATH] [clip [small_clip]]
 
-The default clips are the pinned ones (data/mbaff_b.mkv, data/rt_ctr.mkv).
-The CAVLC check runs when data/cavlc_ipp.mp4 is present and is recorded as
-absent otherwise.  Exits non-zero when a check fails or there is no card.
+The default clips are the pinned ones (data/mbaff_b.mkv, data/rt_ctr.mkv),
+and data/cavlc_ipp.mkv for the CAVLC check.  The compress checks must launch
+lane_encode_streams (the fused kernel of the main path); the lane decoder
+check codes its lanes with lane_encode and the host finalize.  Exits
+non-zero when a check fails or there is no card.
 """
 
 import json
@@ -60,7 +62,8 @@ def main(argv):
     from avrecode_tpu_torch.graft_entry import dryrun_multichip
     from avrecode_tpu_torch.host import native
     from avrecode_tpu_torch.ops.est_coder import est_encode
-    from avrecode_tpu_torch.ops.lane_coder import lane_encode
+    from avrecode_tpu_torch.ops.lane_coder import (
+        lane_encode, lane_encode_streams)
     from avrecode_tpu_torch.ops.lane_decoder import lane_decode
     from avrecode_tpu_torch.parallel.pipeline import (
         device_compress, device_decompress, make_mesh)
@@ -109,7 +112,7 @@ def main(argv):
     check("lane_coder_gop_byte_identical", lambda: (
         device_compress(data, scope="gop", substream_bins=4096)
         == codec.compress(data, scope="gop", substream_bins=4096)),
-        [lane_encode])
+        [lane_encode_streams])
     check("est_kernel_slice_byte_identical", lambda: (
         device_compress(sdata, scope="slice", substream_bins=0)
         == native.compress(sdata, scope="slice")), [est_encode])
@@ -117,7 +120,7 @@ def main(argv):
         (lambda c: codec.decompress(c) == data and
          native.decompress(c) == data)(
             device_compress(data, scope="gop", substream_bins=4096))),
-        [lane_encode])
+        [lane_encode_streams])
     check("lane_decoder_inverts_on_chip", lambda: _lane_decode_check(data),
           [lane_encode, lane_decode])
     check("device_decompress_end_to_end", lambda: device_decompress(
@@ -129,7 +132,7 @@ def main(argv):
     check("mesh_lane_coder_byte_identical", lambda: (
         device_compress(data, mesh=mesh, scope="gop", substream_bins=4096)
         == codec.compress(data, scope="gop", substream_bins=4096)),
-        [lane_encode])
+        [lane_encode_streams])
     check("mesh_est_kernel_byte_identical", lambda: (
         device_compress(sdata, mesh=mesh, scope="slice", substream_bins=0)
         == native.compress(sdata, scope="slice")), [est_encode])
@@ -149,18 +152,14 @@ def main(argv):
 
     check("dryrun_multichip_4_ranks", dryrun, [])
     # CAVLC streams ride the same device pipelines
-    cav = os.path.join(ROOT, "data", "cavlc_ipp.mp4")
-    if os.path.exists(cav):
-        cdata = _read(cav)
-        check("cavlc_lane_coder_byte_identical", lambda: (
-            device_compress(cdata, scope="gop", substream_bins=4096)
-            == codec.compress(cdata, scope="gop", substream_bins=4096)),
-            [lane_encode])
-    else:
-        out["checks"]["cavlc_lane_coder_byte_identical"] = {
-            "absent": "data/cavlc_ipp.mp4 is not present"}
-    out["all_ok"] = all(c["ok"] for c in out["checks"].values()
-                        if "absent" not in c)
+    cdata = _read(os.path.join(ROOT, "data", "cavlc_ipp.mkv"))
+    check("cavlc_lane_coder_byte_identical", lambda: (
+        device_compress(cdata, scope="gop", substream_bins=4096)
+        == codec.compress(cdata, scope="gop", substream_bins=4096)
+        and native.decompress(
+            device_compress(cdata, scope="gop", substream_bins=4096))
+        == cdata), [lane_encode_streams])
+    out["all_ok"] = all(c["ok"] for c in out["checks"].values())
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
