@@ -22,10 +22,18 @@
 //
 // Bounds on this card.  Bytes: 2 B of p1 read and 1/8 B of bits written a
 // bin, the stream bytes once: 0.3 GB and 0.1 ms at [8192, 16384] and
-// 3.35 TB/s.  The floor that binds is the chain: a lane is one serial
+// 3.35 TB/s; the algorithm's integer operations (10 a bin and 7 a stream
+// byte, chip_smoke.py's DECODE_OPS) take less.  The floor that binds is
+// the chain: a lane is one serial
 // recurrence over (code, rng), so Bp bins cost at least Bp times one bin's
 // dependent instructions (rng >> 16, multiply, compare, select, find
-// leading bit, shift), whatever the lane count.
+// leading bit, shift; ~53 cycles), whatever the lane count: 0.44 ms at
+// 16,384 bins.  Issue: a bin is ~25 integer instructions in the unrolled
+// body (chip_sass.py), 2 cycles each on a scheduler's 16 integer lanes,
+// ~50 cycles: below the chain.  Neither is what a warp reaches: its
+// instructions issue in order, so a stall on the chain holds the side work
+// behind it too (four warps alone on the card decode as slowly a bin as
+// 512 warps).
 //
 // Design: one thread per lane, 16 lanes a warp, tile by tile (128 bins),
 // as lane_encode.cu, whose p1 tile loader this is: coalesced cp.async
@@ -34,8 +42,14 @@
 //   * The byte feed stays off the chain.  A thread keeps the next stream
 //     bytes in a 64-bit window, most significant byte first, so a renorm
 //     step is a funnel shift of (code : window) by 0, 8 or 16 bits; the
-//     byte index never appears.  The window is topped up with one 32-bit
-//     word every two bins (two bins take at most 32 bits).
+//     byte index never appears.  Every two bins (two bins take at most 32
+//     bits) the window takes the word loaded at the last refill where it
+//     has room for 32 bits, and the word after it is loaded: no branch, and
+//     the load is used two bins after it was issued.  (An earlier version's
+//     refill was a branch that loaded the word it was about to use: the
+//     load's latency then sat on the chain every other bin and the branch
+//     split the unrolled body: 0.774-0.783 ms at [8192, 16384] against
+//     0.595-0.602, and one lane of 64,096 bins 2.50-2.51 ms against 2.24.)
 //   * The words come from shared memory, never from global memory inside
 //     the bin loop.  Each lane owns a 1 KB ring there, addressed by the
 //     byte's offset in the stream buffer, which cp.async fills in 16-byte
@@ -49,9 +63,7 @@
 //     ahead.  A warp waits on a register for all of its lanes, so with 16
 //     lanes refilling at different bins nearly every refill met a load
 //     still in flight: 1.20 ms at [8192, 16384], 73 ns a bin, where one
-//     lane alone took 46 ns a bin; with the ring 0.77 ms and 39 ns.  Times
-//     are chip_variants.py's, both versions in one call on an NVIDIA H100
-//     80GB HBM3 at 700 W.)
+//     lane alone took 46 ns a bin; with the ring 0.77 ms and 39 ns.)
 //   * Both renorm steps come from one find-leading-bit: with rng >= 2^24
 //     before the bin, the new rng is >= 2^8 for every p1 (a 1 needs
 //     code < r1, which p1 = 0 never gives), so its leading zeros are 0..23
@@ -59,6 +71,15 @@
 //   * Bits collect in a register and leave as one 32-bit word per 32 bins.
 //     A warp stops loading p1 after the last tile that any of its lanes
 //     needs and writes zero words from there on.
+// Also tried: 32 lanes a warp (0.628 ms: half the warps, each as
+// slow); a table of the stream's byte pairs built at the top of each tile,
+// so that a bin reads its two next bytes by position and no window exists
+// (20 instructions a bin against 25, but 0.713 ms: the table load is on
+// the chain).  The decoder's chain cannot be split between two warps
+// (`one = code < r1` couples code and rng), and all that could leave it is
+// the refill, which is a quarter of its instructions.  Times are
+// chip_variants.py's, all versions in one call on an NVIDIA H100 80GB HBM3
+// at 700 W.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,17 +92,19 @@ constexpr int kP1Row = kTileBins * 2 + 16;  // bytes, padded
 constexpr int kP1Tile = kRows * kP1Row;     // 4,352
 constexpr int kRing = 1024;                 // stream bytes a lane holds
 // A tile takes at most 128 x 16 bits and ends with at most 64 in the
-// window: 66 words, 264 bytes.  Asking, at the top of tile t, for the bytes
-// up to 2 x 264 past the next word covers tile t + 1 wherever tile t ends,
-// and the span in flight (528 + 2 x 15 for the chunks' alignment) fits the
-// ring without touching a byte still to be read.
-constexpr int kAhead = 528;
+// window and one word loaded ahead of it: 67 words, 268 bytes.  Asking, at
+// the top of tile t, for the bytes up to 2 x 268 past the next word covers
+// tile t + 1 wherever tile t ends, and the span in flight (536 + 2 x 15 for
+// the chunks' alignment) fits the ring without touching a byte still to be
+// read.
+constexpr int kAhead = 536;
 
 struct LaneState {
   uint32_t code, rng;
   uint64_t win;    // upcoming stream bytes, the next one on top
   int bits;        // valid bits in win
   uint32_t roff;   // ring offset of the next word (its buffer offset % kRing)
+  uint32_t next;   // that word, first byte on top, loaded a refill ahead
 };
 
 // The word at ring offset `off`, first byte on top.
@@ -90,13 +113,16 @@ __device__ __forceinline__ uint32_t ring_word(const unsigned char* ring,
   return __byte_perm(*reinterpret_cast<const uint32_t*>(ring + off), 0u, 0x0123);
 }
 
+// Branch-free: where the window has room for a word, the word loaded a
+// refill ago goes in and the one after it is loaded; elsewhere the same
+// word is loaded again.  The load is needed two bins later, so its latency
+// stays off the chain.
 __device__ __forceinline__ void refill(LaneState& st, const unsigned char* ring) {
-  const uint32_t w = ring_word(ring, st.roff);  // read whether needed or not
-  if (st.bits <= 32) {
-    st.win |= static_cast<uint64_t>(w) << (32 - st.bits);
-    st.bits += 32;
-    st.roff = (st.roff + 4u) & (kRing - 1);
-  }
+  const bool room = st.bits <= 32;
+  st.win |= static_cast<uint64_t>(room ? st.next : 0u) << ((32 - st.bits) & 63);
+  st.bits += room ? 32 : 0;
+  st.roff = (st.roff + (room ? 4u : 0u)) & (kRing - 1);
+  st.next = ring_word(ring, st.roff);
 }
 
 // 8 bins of one lane: p1 as four packed pairs.  Returns the 8 decoded bits.
@@ -199,7 +225,7 @@ lane_decode_kernel(const unsigned char* __restrict__ stream, long long n_bytes,
   ring_request(next + kAhead);
   asm volatile("cp.async.commit_group;" ::: "memory");
   asm volatile("cp.async.wait_group 0;" ::: "memory");
-  LaneState st{0u, 0xFFFFFFFFu, 0ull, 0, 0u};
+  LaneState st{0u, 0xFFFFFFFFu, 0ull, 0, 0u, 0u};
   if (mine) {
     const uint32_t r0 = static_cast<uint32_t>(start & ~3ll) & (kRing - 1);
     const int s = 8 * static_cast<int>(start & 3);
@@ -211,6 +237,7 @@ lane_decode_kernel(const unsigned char* __restrict__ stream, long long n_bytes,
              (static_cast<uint64_t>(c << s));
     st.bits = 64 - s;
     st.roff = (r0 + 12u) & (kRing - 1);
+    st.next = ring_word(ring, st.roff);
   }
   uint32_t roff_seen = st.roff;  // st.roff when `next` was brought up to date
 

@@ -14,8 +14,9 @@
 //   fcar int32  [L]           pending-carry count of the flush byte0
 //
 // Bounds on this card.  Bytes: 2 + 1/8 B read and 8 B written a bin, 1,359 MB
-// at [8192, 16384], 0.41 ms at 3.35 TB/s; the ~30 integer operations a bin
-// are less.  The second floor is the chain: every lane is one range-coder
+// at [8192, 16384], 0.41 ms at 3.35 TB/s; the algorithm's integer
+// operations (14 a bin and 8 a stream byte, chip_smoke.py's LANE_OPS) are
+// less.  The second floor is the chain: every lane is one range-coder
 // stream, a serial recurrence over (low, rng, pend), so Bp bins cost at
 // least Bp times one bin's dependent instructions, whatever the lane count
 // (measured on the card: ~5 cycles for an integer instruction or a

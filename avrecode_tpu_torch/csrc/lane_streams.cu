@@ -19,63 +19,80 @@
 //
 // Bounds on this card.  Bytes: 2 + 1/8 B read a bin, at most M written a
 // lane: 285 MB + 34 MB at [8192, 16384] with M = 4104, 0.095 ms at 3.35
-// TB/s.  The floor that counts is the chain, as in lane_encode.cu: a lane
-// is one serial recurrence over (low, rng, pend), so Bp bins cost Bp times
-// one bin's dependent steps (~53 cycles), 0.44 ms at 16,384 bins.
+// TB/s.  Operations: the algorithm's 10 integer operations a bin and 10 a
+// stream byte (chip_smoke.py's STREAM_OPS), 0.04 ms: the bytes bind.
+// The floor that counts is the chain: a lane is one serial recurrence over
+// (low, rng), so Bp bins cost Bp times one bin's dependent steps (~53
+// cycles as lane_encode.cu codes them, 0.44 ms at 16,384 bins).  What a warp
+// reaches is set by its own instruction stream: it issues in order, so a
+// stall on the chain holds the side work behind it, and each integer
+// instruction holds its scheduler's 16 integer lanes two cycles however many
+// of its threads work.  One thread a lane doing everything (the earlier
+// design, ~36 instructions a bin) ran at 98 cycles a bin, four warps alone
+// on the card as slowly as 512.
 //
-// Design: one thread per lane, 16 lanes a warp, 128-bin tiles of p1 and bit
-// words through two cp.async buffers, the chain of lane_encode.cu bin for
-// bin.  What a bin emits does not go out as a token; the lane's thread owns
-// its stream from the first bin to the last byte:
-//   * Compaction as it goes, carries in a register.  A token's
-//     pending-carry count belongs to the byte before its byte0, and one
-//     emitted byte in five or ten receives one: that is no rare event.  So
-//     the newest byte is held in a register until the next token arrives,
-//     takes that token's count there, and only then counts as final.  A
-//     bin stores two 16-bit elements into a ring of 512 positions in shared
-//     memory, whatever it emitted: the held byte plus the count at the
-//     position before the write position, and its own byte0 (with its count
-//     in bits 12-13) at the write position; the position moves on by the 0,
-//     1 or 2 bytes really emitted, and what was not is overwritten by the
-//     next bin.  Two stores, a select and two adds beyond the chain, no
-//     branch.  (Tried first: raw bytes in the ring and a queue of carries
-//     filled under `if (carry)`, 1.05 ms at [8192, 16384], of which the
-//     branch was 0.27, since it cuts the unrolled body into blocks, and a
-//     last-flushable position kept bin by bin 0.10; then the counts in the
-//     ring's elements and every one of them resolved after the tile, 1.57
-//     ms, 0.75 of it that pass: a warp walks through its 16 lanes' carries
-//     one after another.)
-//   * After a tile the lane's thread settles the tile's new bytes.  The
-//     last one whose raw byte is not 0xFF or whose token held a carry is
-//     where the truncation rule will cut (nearly always the newest byte:
-//     a backward scan of one step).  Then the overflows, found 8 elements
-//     a read: a final byte that was 0xFF and took a count stands above 0xFF
-//     (one byte in a thousand); the thread takes the excess off and ripples
-//     it base-256 toward lower positions.  The tile's own bytes are still
-//     in the ring; a run of 0xFF that reaches below them is patched in
-//     global memory, in pieces the warp stored after earlier tiles and will
-//     not store again.  A carry into the byte before position 0 is dropped,
-//     as the reference drops it.
-//   * Then the whole warp stores every lane's complete 8-byte pieces to
-//     global memory (two threads a row, 8 elements packed to 8 bytes), so
-//     no thread writes single bytes there; the piece of the held byte
-//     waits.  A tile emits at most 256 bytes a lane and at most 8 wait for
-//     their piece, so the ring never wraps onto bytes not yet stored.  M is
-//     a multiple of 8, so a piece never straddles column M, and nothing is
-//     stored at or past it; the position keeps counting.
-//   * After the flush pair the thread scans its own resolved bytes backward
-//     from the cut for the last non-zero one; a running "last non-zero"
-//     would be wrong, since a ripple turns 0xFF into 0x00.
-//   * A warp codes only as many tiles as its longest lane has bins.
-// The settling and the last scan are serial for the warp, and short; a
-// ripple that walks through a long run of 0xFF in global memory pays a
-// memory round trip a byte (64 lanes that each walk ~1,500 bytes: 2.5 ms).
+// Design: a block of two warps codes 32 lanes, every thread busy, and each
+// lane's work is split between them; each warp runs on a scheduler of its
+// own (chip_latency.cu's `where` probe: the two warps of all 256 blocks of
+// a full group land on different sub-partitions).
+//   * The chain warp runs the (low, rng) recurrence, one thread a lane, over
+//     128-bin tiles of p1 and bit words that it copies into shared memory
+//     with cp.async a tile ahead (two buffers, a row padded by 16 bytes,
+//     which also hold the row's four bit words).  The bit is folded into
+//     the multipliers (p1 or -p1 for rng, 0 or p1 for low), chosen off the
+//     chain, so rng_n and low_n are one multiply-add each: the subtract and
+//     the select leave the chain.  Both renorm shifts come from one
+//     find-leading-bit.  The pending-carry count is not kept here: for
+//     each bin the warp hands over one 32-bit record, the two bytes a
+//     renorm would emit (low's top two bytes), the carry out of low (0 or
+//     1) and the number of bytes emitted (0, 1 or 2), 8 bins at a time as
+//     two 16-byte stores into a record tile of 32 rows (rows padded by 16
+//     bytes: conflict-free for both warps).  Two record tiles,
+//     double-buffered: named barriers FULL and EMPTY a buffer let the chain
+//     warp run up to two tiles ahead.  ~25 instructions a bin.
+//   * The stream warp owns each lane's stream from the first byte to the
+//     last.  A record's carry joins the pending count; a token that emits
+//     takes the count along.  The newest byte is held in a register until
+//     the next token's count has come: a record stores the held byte plus
+//     the count at the position before the write position and its first
+//     byte (with the count in bits 12-13, for the truncation rule) at the
+//     write position, and the position moves on by the bytes emitted.
+//     Selects by masks, no branch: ~21 instructions and two 16-bit stores a
+//     record.  A lane's bytes not yet stored sit in a row of shared memory
+//     that starts at the last stored piece, moved down after every tile, so
+//     no position needs a mask.
+//   * After a tile the stream warp settles the tile's new bytes: the
+//     truncation cut (the last byte whose raw value is not 0xFF or whose
+//     token held a carry; the backward scan goes on only past tokens
+//     without a carry, so every byte it reads is raw), then the overflows,
+//     found 8 elements a read: a final byte that was 0xFF and took a count
+//     stands above 0xFF (one byte in a thousand); the thread takes the
+//     excess off and ripples it base-256 toward lower positions, in shared
+//     memory or, below the bytes still there, in pieces of global memory
+//     stored after earlier tiles.  A carry into the byte before position 0
+//     is dropped, as the reference drops it.
+//   * Then the stream warp stores every lane's complete 8-byte pieces (two
+//     threads a row, 8 elements packed to 8 bytes); the piece of the held
+//     byte waits.  M is a multiple of 8: nothing is stored at or past it.
+//   * After the last tile the chain warp hands over the flush (low rounded
+//     up to a multiple of 2^24, and its carry) as one more record; the
+//     stream warp appends its two bytes, settles them, stores the rest and
+//     scans its resolved bytes backward from the cut for the last non-zero
+//     one (a running "last non-zero" would be wrong: a ripple turns 0xFF
+//     into 0x00).
+//   * A block codes only as many tiles as its longest lane has bins.
+// Tried on the way ([8192, 16384]; the one-thread design 0.795-0.814 ms in
+// the same calls): the same split with the record carrying the count and
+// the stream warp's held-byte select written as nested conditionals, which
+// the compiler turned into a branch a record, 0.945-0.956 ms; the counts
+// stored beside their bytes and added after the tile, 1.057 ms, the pass
+// after a tile 0.45 ms of it (one token in ten carries, and a warp walks
+// its 32 lanes' carries one after another); held byte and masks with the
+// subtract and select still on the chain, 0.627-0.635 ms.
 //
 // Two switches take a piece out, for chip_variants.py to time what it costs
 // (the output is then wrong): -DSTREAMS_NO_SETTLE skips the pass after a
-// tile, -DSTREAMS_NO_RING the two ring stores of a bin.  At [8192, 16384]:
-// 0.81 ms whole, 0.75 without the pass, 0.615 without both; lane_encode.cu
-// with its 8 B a bin of token stores takes 0.61-0.65.  All times are of
+// tile, -DSTREAMS_NO_STORES the two stores of a record.  All times are of
 // sources run by chip_variants.py on an NVIDIA H100 80GB HBM3 at 700 W.
 
 #include <cstdint>
@@ -85,102 +102,152 @@ namespace {
 
 constexpr uint32_t kTop = 1u << 24;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kRows = 16;                     // lanes a warp
+constexpr int kRows = 32;                     // lanes a block
+constexpr int kThreads = 2 * kRows;           // the chain and the stream warp
 constexpr int kTileBins = 128;                // bins a lane, per tile
 constexpr int kP1Row = kTileBins * 2 + 16;    // bytes: p1, then bit words
-constexpr int kP1Tile = kRows * kP1Row;       // 4,352
+constexpr int kP1Tile = kRows * kP1Row;       // 8,704
+constexpr int kRecRow = kTileBins * 4 + 16;   // bytes: a record a bin, padded
+constexpr int kRecTile = kRows * kRecRow;     // 16,896
 constexpr int kPiece = 8;                     // bytes of one global store
-constexpr int kRing = 512;                    // positions of a lane's ring
-constexpr int kRingRow = kRing + 8;           // elements, padded: other banks
-constexpr int kRingTile = kRows * kRingRow * 2;     // 16,640 bytes
-constexpr int kSmemBytes = 2 * kP1Tile + kRingTile;  // 25,344
+// A lane's bytes not yet stored, from position `stored` (a multiple of 8)
+// on: at most 8 at the top of a tile, 256 more in it, two of the flush; a
+// row starts 8 elements in, so that the element before position `stored`
+// is the row's own, and is padded so that 8 rows at one index hit
+// different banks.
+constexpr int kUnsent = 272;
+constexpr int kUnsentRow = 8 + kUnsent + 16;      // elements
+constexpr int kUnsentTile = kRows * kUnsentRow * 2;     // 18,944 bytes
+constexpr int kSmemBytes = 2 * kP1Tile + 2 * kRecTile + kUnsentTile;  // 70,144
 
 constexpr uint32_t kValue = 0x3FFu;  // an element's byte, with its excess
 constexpr int kCountShift = 12;      // the token's carry count above it
 
-struct LaneState {
-  uint32_t low, rng, pend;
-  int pos;        // bytes emitted so far = where the next byte goes
-  uint32_t held;  // the element at pos - 1: it may still take a carry
+// named barriers: FULL + b (records of buffer b written), EMPTY + b (read)
+constexpr int kBarFull = 1;
+constexpr int kBarEmpty = 3;
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+struct ChainState {
+  uint32_t low, rng;
 };
 
-// 8 bins of one lane: p1 as four packed pairs, the bits in the low byte of
-// `bits`.  kCheck: only the first n_live of them are valid.  The chain is
-// lane_encode.cu's code8, step for step.
+struct StreamState {
+  int pos;        // bytes emitted so far = where the next byte goes
+  uint32_t pend;  // carries out of low since the last byte was emitted
+  uint32_t held;  // the element at pos - 1: it may still take a count
+};
+
+// A bin's record: byte 0 the second byte a renorm would emit, byte 1 the
+// carry out of low (0 or 1), byte 2 the first byte, byte 3 the bytes
+// emitted (0-2).  The flush's has the same layout.
+__device__ __forceinline__ uint32_t record(uint32_t low, uint32_t carry,
+                                           uint32_t sh) {
+  return __byte_perm(low, carry, 0x5342) + (sh << 21);
+}
+
+// 8 bins of one lane through the chain: p1 as four packed pairs, the bits in
+// the low byte of `bits`; their 8 records go to `rec` (two 16-byte stores).
+// kCheck: only the first n_live of them are valid, the others leave the
+// state alone and give a zero record.  It computes what lane_encode.cu's
+// code8 does, but for the pending-carry count, which the stream warp keeps.
 template <bool kCheck>
-__device__ __forceinline__ void code8(LaneState& st, const uint4 pv,
-                                      uint32_t bits, int n_live,
-                                      uint16_t* ring) {
+__device__ __forceinline__ void code8(ChainState& st, const uint4 pv,
+                                      uint32_t bits, int n_live, uint4* rec) {
   const uint32_t pw[4] = {pv.x, pv.y, pv.z, pv.w};
+  uint32_t r[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
+    r[k] = 0u;
     if (kCheck && k >= n_live) continue;
     const uint32_t p1 = (k & 1) ? pw[k >> 1] >> 16 : pw[k >> 1] & 0xFFFFu;
     const bool one = (bits & (1u << k)) != 0u;
-    const uint32_t r1 = (st.rng >> 16) * p1;
-    const uint32_t rng_n = one ? r1 : st.rng - r1;
-    const uint64_t pl = ((static_cast<uint64_t>(st.pend) << 32) | st.low) +
-                        (one ? 0u : r1);
-    const uint32_t low_n = static_cast<uint32_t>(pl);
-    const uint32_t pend_n = static_cast<uint32_t>(pl >> 32);
+    // the bit folded into the multipliers, off the chain: rng_n is r1 or
+    // rng - r1, low_n low or low + r1 (r1 = (rng >> 16) * p1), each one
+    // multiply-add
+    const uint32_t t = st.rng >> 16;
+    const uint32_t rng_n = t * (one ? p1 : 0u - p1) + (one ? 0u : st.rng);
+    const uint32_t low_n = t * (one ? 0u : p1) + st.low;
     // both renorm byte shifts from one find-leading-bit (0, 8 or 16); p1 = 0
-    // makes rng_n 0 and takes two shifts, as the plain version does
+    // makes rng_n 0 and takes two shifts, as the plain version does (rng's
+    // shift is then 24, which leaves 0 as well, one step less on the chain)
     uint32_t lz;
     asm("bfind.shiftamt.u32 %0, %1;" : "=r"(lz) : "r"(rng_n));
-    const uint32_t sh_rng = lz & 24u;
     const uint32_t sh = min(lz, 16u) & 24u;
-    const bool do0 = sh != 0u;
-    // the token's pending-carry count goes to the held byte (low wraps at
-    // most once between two emissions, so it is 0 or 1; 0 where nothing is
-    // emitted); then the bytes a renorm would emit: low's top byte with the
-    // count above it, and the next byte, which becomes the held one
-    const uint32_t c = do0 ? pend_n : 0u;
-    const uint32_t e0 = (low_n >> 24) + (c << kCountShift);
-    const uint32_t e1 = (low_n >> 16) & 0xFFu;
-#ifndef STREAMS_NO_RING
-    ring[(st.pos - 1) & (kRing - 1)] = static_cast<uint16_t>(st.held + c);
-    ring[st.pos & (kRing - 1)] = static_cast<uint16_t>(e0);
-#endif
-    st.held = sh == 16u ? e1 : (do0 ? e0 : st.held);
-    st.pos += static_cast<int>(sh >> 3);
+    r[k] = record(low_n, low_n < st.low ? 1u : 0u, sh);
     st.low = low_n << sh;
-    st.rng = rng_n << sh_rng;
-    st.pend = do0 ? 0u : pend_n;
+    st.rng = rng_n << (lz & 24u);
   }
+  rec[0] = make_uint4(r[0], r[1], r[2], r[3]);
+  rec[1] = make_uint4(r[4], r[5], r[6], r[7]);
 }
 
-// Settle the bytes a lane emitted at positions [from, to), all still in the
-// ring; the one at to - 1 is the held byte, those below it are final.
-// Returns the truncation cut: the last of them whose raw byte is not 0xFF or
-// whose token held a carry, or `cut` if there is none.  (The scan goes on
-// only past tokens without a carry, so every byte it looks at is raw.)  Then
-// takes the excess off every final byte that stands above 0xFF, from the
-// byte that was held before this tile on, and ripples it toward lower
-// positions.  Positions from `stored` on are in the ring; those below were
-// stored by the warp after earlier tiles and are patched in the lane's row
-// of `out` (never at or past column M: such a lane is past the bound and
-// its row means nothing).
-__device__ __noinline__ int settle(uint16_t* ring, volatile unsigned char* row,
-                                   int from, int to, int stored, int M,
-                                   int cut) {
+// One record into the lane's stream (unsent0 + p: the element of position p).
+// The carry joins the pending count, which goes with the token's first byte
+// when it emits one: the count is added to the held byte, the newest one
+// before this token, which goes to the position before the write position,
+// and the first byte, with its count above it for the truncation rule, to
+// the write position; the byte that is now newest becomes the held one.  A
+// record that emits nothing rewrites the held byte and an element past the
+// stream.  Masks, not branches.
+__device__ __forceinline__ void put(StreamState& s, uint32_t r,
+                                    uint16_t* unsent0) {
+  const uint32_t n = r >> 24;
+  const uint32_t any = 0u - min(n, 1u);  // all ones where a byte was emitted
+  const uint32_t two = 0u - (n >> 1);    // all ones where two were
+  s.pend += __byte_perm(r, 0u, 0x4441);
+  const uint32_t c = s.pend & any;
+  s.pend -= c;
+  const uint32_t e0 = __byte_perm(r, 0u, 0x4442) + (c << kCountShift);
+  const uint32_t e1 = r & 0xFFu;
+#ifndef STREAMS_NO_STORES
+  uint16_t* q = unsent0 + s.pos;
+  q[-1] = static_cast<uint16_t>(s.held + c);
+  q[0] = static_cast<uint16_t>(e0);
+#endif
+  const uint32_t newest = (e1 & two) | (e0 & ~two);
+  s.held = (newest & any) | (s.held & ~any);
+  s.pos += static_cast<int>(n);
+}
+
+// Settle the bytes a lane emitted at positions [from, to); unsent[0] holds
+// position `stored`, below which the bytes are in the lane's row of `out`.
+// The one at to - 1 is the held byte, those below it are final.  Returns the
+// truncation cut: the last of them whose raw byte is not 0xFF or whose token
+// held a carry, or `cut` if there is none.  (The scan goes on only past
+// tokens without a carry, so every byte it looks at is raw.)  Then takes the
+// excess off every final byte that stands above 0xFF, from the byte that
+// was held before these on, and ripples it base-256 toward lower positions:
+// in shared memory, or in `out` below it (never at or past column M: such a
+// lane is past the bound and its row means nothing).  A carry into the byte
+// before position 0 is dropped, as the reference drops it.
+__device__ __noinline__ int settle(uint16_t* unsent,
+                                   volatile unsigned char* row, int from,
+                                   int to, int stored, int M, int cut) {
   for (int j = to - 1; j >= from; --j) {
-    const uint32_t e = ring[j & (kRing - 1)];
+    const uint32_t e = unsent[j - stored];
     if ((e & kValue) != 0xFFu || (e >> kCountShift) != 0u) {
       cut = j;
       break;
     }
   }
   const int first = max(from - 1, 0);
-  for (int g = first & ~7; g < to; g += 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(ring + (g & (kRing - 1)));
+  for (int g = (first - stored) & ~7; g < to - stored; g += 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(unsent + g);
     if (((v.x | v.y | v.z | v.w) & 0x03000300u) == 0u) continue;
-    for (int j = max(g, first); j < min(g + 8, to); ++j) {
-      uint16_t* q = ring + (j & (kRing - 1));
-      uint32_t carry = (*q & kValue) >> 8;
-      *q &= 0xF0FFu;
-      for (int i = j - 1; carry != 0u && i >= 0; --i) {
+    for (int j = max(g, first - stored); j < min(g + 8, to - stored); ++j) {
+      uint32_t carry = (unsent[j] & kValue) >> 8;
+      unsent[j] &= 0xF0FFu;
+      for (int i = j - 1 + stored; carry != 0u && i >= 0; --i) {
         if (i >= stored) {
-          uint16_t* p = ring + (i & (kRing - 1));
+          uint16_t* p = unsent + (i - stored);
           const uint32_t x = (*p & 0xFFu) + carry;
           *p = static_cast<uint16_t>((*p & 0xF000u) | (x & 0xFFu));
           carry = x >> 8;
@@ -208,29 +275,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
-__global__ void __launch_bounds__(32)
-lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
-                           const uint32_t* __restrict__ bitw,
-                           const int32_t* __restrict__ lens,
-                           unsigned char* out, int32_t* __restrict__ nbytes,
-                           int32_t* __restrict__ total, int L, int Bp, int M) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* s_p1 = smem;                  // two p1 tiles
-  uint16_t* s_ring = reinterpret_cast<uint16_t*>(smem + 2 * kP1Tile);
-
-  const int tid = threadIdx.x;
-  const int lane0 = blockIdx.x * kRows;  // first lane of this warp
+// The chain warp: codes the block's lanes tile by tile and hands over a
+// record a bin, then the flush.
+__device__ __forceinline__ void chain_warp(
+    const uint16_t* __restrict__ p1, const uint32_t* __restrict__ bitw,
+    unsigned char* s_p1, unsigned char* s_rec, int tid, int lane0, int rows,
+    int n_valid, int nt, int Bp) {
+  const bool owner = tid < rows;
   const int lane = lane0 + tid;
-  const int rows = min(kRows, L - lane0);  // lanes this warp owns
-  const bool owner = tid < rows;           // this thread codes a lane
-
-  int n_valid = 0;
-  if (owner) {
-    n_valid = lens[lane];
-    n_valid = n_valid < 0 ? 0 : (n_valid > Bp ? Bp : n_valid);
-  }
-  // tiles of the warp's longest lane; the bins past it are never read
-  const int nt = (__reduce_max_sync(kFull, n_valid) + kTileBins - 1) / kTileBins;
 
   // tile t of p1 -> buffer t & 1: 16-byte chunks, neighbouring threads on
   // neighbouring chunks of a lane's row; the bit words go into the 16 bytes
@@ -251,30 +303,7 @@ lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
 
-  LaneState st{0u, 0xFFFFFFFFu, 0u, 0, 0u};
-  int stored = 0;  // the lane's bytes below this are in global memory
-  int cut = 0;     // where the truncation rule cuts the stream
-  uint16_t* ring = s_ring + (tid & (kRows - 1)) * kRingRow;  // a ring a lane
-  unsigned char* row = out + static_cast<size_t>(owner ? lane : lane0) * M;
-
-  // the warp stores every lane's pieces from `stored` up to `upto` (both
-  // multiples of 8), two threads a row, nothing at or past column M
-  auto store_pieces = [&](int upto) {
-    const int r = tid >> 1;
-    const int from = __shfl_sync(kFull, stored, r);
-    const int to = min(__shfl_sync(kFull, upto, r), M);
-    if (r < rows) {
-      const uint16_t* src = s_ring + r * kRingRow;
-      unsigned char* dst = out + static_cast<size_t>(lane0 + r) * M;
-      for (int j = from + (tid & 1) * kPiece; j < to; j += 2 * kPiece) {
-        const uint4 v =
-            *reinterpret_cast<const uint4*>(src + (j & (kRing - 1)));
-        *reinterpret_cast<uint2*>(dst + j) = make_uint2(
-            __byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
-      }
-    }
-  };
-
+  ChainState st{0u, 0xFFFFFFFFu};
   if (nt > 0) load_tile(0);
   for (int t = 0; t < nt; ++t) {
     if (t + 1 < nt) {
@@ -284,11 +313,12 @@ lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
       asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
     __syncwarp();
+    if (t >= 2) bar_sync(kBarEmpty + (t & 1));  // the stream warp read t - 2
 
     const int b0 = t * kTileBins;
     const int tw = min(kTileBins, Bp - b0);  // bins of this tile
     const unsigned char* prow = s_p1 + (t & 1) * kP1Tile + tid * kP1Row;
-    const int from = st.pos;
+    unsigned char* rrow = s_rec + (t & 1) * kRecTile + tid * kRecRow;
     for (int w = 0; owner && w < tw / 32 && b0 + w * 32 < n_valid; ++w) {
       const uint32_t word =
           *reinterpret_cast<const uint32_t*>(prow + kTileBins * 2 + w * 4);
@@ -296,51 +326,124 @@ lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
       for (int g = 0; g < 4; ++g) {
         const int i = w * 32 + g * 8;  // bin inside the tile
         const uint4 pv = *reinterpret_cast<const uint4*>(prow + i * 2);
+        uint4* rec = reinterpret_cast<uint4*>(rrow + i * 4);
         const int n_live = n_valid - (b0 + i);
         if (n_live >= 8)
-          code8<false>(st, pv, word >> (g * 8), 8, ring);
+          code8<false>(st, pv, word >> (g * 8), 8, rec);
         else
-          code8<true>(st, pv, word >> (g * 8), n_live, ring);
+          code8<true>(st, pv, word >> (g * 8), n_live, rec);
       }
     }
-    if (st.pos != from) {
-      ring[(st.pos - 1) & (kRing - 1)] = static_cast<uint16_t>(st.held);
+    __syncwarp();  // before the next tile overwrites the p1 buffer
+    bar_arrive(kBarFull + (t & 1));
+  }
+
+  // the flush as one more record, in the buffer of "tile" nt: low rounded
+  // up to the next 2^24 multiple, then two byte shifts
+  if (nt >= 2) bar_sync(kBarEmpty + (nt & 1));
+  if (owner) {
+    const uint32_t low_r = (st.low + (kTop - 1)) & 0xFF000000u;
+    *reinterpret_cast<uint32_t*>(s_rec + (nt & 1) * kRecTile + tid * kRecRow) =
+        record(low_r, low_r < st.low ? 1u : 0u, 16u);
+  }
+  __syncwarp();
+  bar_arrive(kBarFull + (nt & 1));
+}
+
+// The stream warp: turns the records into each lane's resolved bytes in
+// `out`, then writes nbytes and total.
+__device__ __forceinline__ void stream_warp(
+    unsigned char* s_rec, uint16_t* s_unsent, unsigned char* out,
+    int32_t* __restrict__ nbytes, int32_t* __restrict__ total, int tid,
+    int lane0, int rows, int n_valid, int nt, int Bp, int M) {
+  const bool owner = tid < rows;
+  const int lane = lane0 + tid;
+  StreamState s{0, 0u, 0u};
+  int stored = 0;  // the lane's bytes below this are in global memory
+  int cut = 0;     // where the truncation rule cuts the stream
+  uint16_t* unsent = s_unsent + tid * kUnsentRow + 8;  // position `stored` on
+  unsigned char* row = out + static_cast<size_t>(owner ? lane : lane0) * M;
+
+  // the warp stores every lane's pieces from `stored` up to `upto` (both
+  // multiples of 8), two threads a row, 16 rows a pass, nothing at or past
+  // column M
+  auto store_pieces = [&](int upto) {
+#pragma unroll
+    for (int r0 = 0; r0 < kRows; r0 += 16) {
+      const int r = r0 + (tid >> 1);
+      const int from = __shfl_sync(kFull, stored, r);
+      const int to = min(__shfl_sync(kFull, upto, r), M);
+      if (r < rows) {
+        const uint16_t* src = s_unsent + r * kUnsentRow + 8 - from;
+        unsigned char* dst = out + static_cast<size_t>(lane0 + r) * M;
+        for (int j = from + (tid & 1) * kPiece; j < to; j += 2 * kPiece) {
+          const uint4 v = *reinterpret_cast<const uint4*>(src + j);
+          *reinterpret_cast<uint2*>(dst + j) = make_uint2(
+              __byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
+        }
+      }
+    }
+  };
+
+  for (int t = 0; t < nt; ++t) {
+    bar_sync(kBarFull + (t & 1));
+    const int b0 = t * kTileBins;
+    const int tw = min(kTileBins, Bp - b0);  // bins of this tile
+    const unsigned char* rrow = s_rec + (t & 1) * kRecTile + tid * kRecRow;
+    uint16_t* unsent0 = unsent - stored;
+    const int from = s.pos;
+    for (int w = 0; owner && w < tw / 32 && b0 + w * 32 < n_valid; ++w) {
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {  // 4 records a read
+        const uint4 r =
+            *reinterpret_cast<const uint4*>(rrow + w * 128 + h * 16);
+        put(s, r.x, unsent0);
+        put(s, r.y, unsent0);
+        put(s, r.z, unsent0);
+        put(s, r.w, unsent0);
+      }
+    }
+    __syncwarp();
+    if (t + 2 <= nt) bar_arrive(kBarEmpty + (t & 1));  // the chain may refill
+    if (s.pos != from) {
+      unsent[s.pos - 1 - stored] = static_cast<uint16_t>(s.held);
 #ifndef STREAMS_NO_SETTLE
-      cut = settle(ring, row, from, st.pos, stored, M, cut);
+      cut = settle(unsent, row, from, s.pos, stored, M, cut);
 #endif
     }
     __syncwarp();
-    // all final bytes, in whole pieces: not the held byte's piece
-    const int upto = max(st.pos - 1, 0) & ~(kPiece - 1);
+    // all final bytes, in whole pieces: not the piece of the held byte
+    const int upto = max(s.pos - 1, 0) & ~(kPiece - 1);
     store_pieces(upto);
-    stored = upto;
-    __syncwarp();  // before the next tile overwrites the p1 buffer
+    __syncwarp();
+    if (upto != stored) {  // the piece left moves to the row's start
+      *reinterpret_cast<uint4*>(unsent) =
+          *reinterpret_cast<const uint4*>(unsent + (upto - stored));
+      stored = upto;
+    }
   }
 
+  bar_sync(kBarFull + (nt & 1));
   if (owner) {
-    // shortest-terminator flush from the frozen state: round low up to the
-    // next 2^24 multiple, then two byte shifts
-    const uint32_t low_r = (st.low + (kTop - 1)) & 0xFF000000u;
-    const uint32_t fc = st.pend + (low_r < st.low ? 1u : 0u);
-    ring[(st.pos - 1) & (kRing - 1)] = static_cast<uint16_t>(st.held + fc);
-    ring[st.pos & (kRing - 1)] =
-        static_cast<uint16_t>((low_r >> 24) + (fc << kCountShift));
-    ring[(st.pos + 1) & (kRing - 1)] =
-        static_cast<uint16_t>((low_r >> 16) & 0xFFu);
-    st.pos += 2;
-    cut = settle(ring, row, st.pos - 2, st.pos, stored, M, cut);
+    // the flush record: two bytes, the pending count onto the held byte
+    const int from = s.pos;
+    put(s, *reinterpret_cast<const uint32_t*>(s_rec + (nt & 1) * kRecTile +
+                                              tid * kRecRow),
+        unsent - stored);
+    unsent[s.pos - 1 - stored] = static_cast<uint16_t>(s.held);
+    cut = settle(unsent, row, from, s.pos, stored, M, cut);
   }
   __syncwarp();
   // the last, partly filled piece too; what lies past the stream's end in
   // it is unspecified
-  store_pieces((st.pos + kPiece - 1) & ~(kPiece - 1));
+  store_pieces((s.pos + kPiece - 1) & ~(kPiece - 1));
   __syncwarp();
 
   if (owner) {
     // truncation: the stream ends at the cut (exclusive), less its trailing
     // zeros, read from the resolved bytes the warp has just stored
     int nb = 0;
-    if (st.pos <= M) {
+    if (s.pos <= M) {
       const volatile unsigned char* bytes = row;
       for (int j = cut - 1; j >= 0; --j)
         if (bytes[j] != 0) {
@@ -349,8 +452,39 @@ lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
         }
     }
     nbytes[lane] = nb;
-    total[lane] = st.pos;
+    total[lane] = s.pos;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
+                           const uint32_t* __restrict__ bitw,
+                           const int32_t* __restrict__ lens,
+                           unsigned char* out, int32_t* __restrict__ nbytes,
+                           int32_t* __restrict__ total, int L, int Bp, int M) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* s_p1 = smem;                  // two p1 tiles
+  unsigned char* s_rec = smem + 2 * kP1Tile;   // two record tiles
+  uint16_t* s_unsent = reinterpret_cast<uint16_t*>(smem + 2 * kP1Tile +
+                                                 2 * kRecTile);
+
+  const int tid = threadIdx.x & 31;  // the lane's row in the block
+  const int lane0 = blockIdx.x * kRows;
+  const int rows = min(kRows, L - lane0);  // lanes this block owns
+  int n_valid = 0;
+  if (tid < rows) {
+    n_valid = lens[lane0 + tid];
+    n_valid = n_valid < 0 ? 0 : (n_valid > Bp ? Bp : n_valid);
+  }
+  // tiles of the block's longest lane; the bins past it are never read
+  const int nt =
+      (__reduce_max_sync(kFull, n_valid) + kTileBins - 1) / kTileBins;
+
+  if (threadIdx.x < 32)
+    chain_warp(p1, bitw, s_p1, s_rec, tid, lane0, rows, n_valid, nt, Bp);
+  else
+    stream_warp(s_rec, s_unsent, out, nbytes, total, tid, lane0, rows, n_valid,
+                nt, Bp, M);
 }
 
 }  // namespace
@@ -359,7 +493,11 @@ extern "C" int lane_encode_streams_launch(const void* p1, const void* bitw,
                                           const void* lens, void* out,
                                           void* nbytes, void* total, int L,
                                           int Bp, int M, void* stream) {
-  lane_encode_streams_kernel<<<(L + kRows - 1) / kRows, 32, kSmemBytes,
+  cudaError_t err = cudaFuncSetAttribute(
+      lane_encode_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lane_encode_streams_kernel<<<(L + kRows - 1) / kRows, kThreads, kSmemBytes,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(p1), static_cast<const uint32_t*>(bitw),
       static_cast<const int32_t*>(lens), static_cast<unsigned char*>(out),

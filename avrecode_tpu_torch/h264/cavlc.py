@@ -426,7 +426,7 @@ class CavlcSliceParser:
             inc += 1 if pic.mbclass[y, x - 1] >= 5 else 0
         if self._avail(x, y - 1):
             inc += 1 if pic.mbclass[y - 1, x] >= 5 else 0
-        raw = self._ue("vmbt", mbt_a + 3 * inc, cap=63)
+        raw = self._ue("vmbt", mbt_a + 3 * inc)
         intra_base = None
         if stype == SLICE_I:
             intra_base = raw
@@ -467,7 +467,7 @@ class CavlcSliceParser:
             self._b_inter(raw)
 
         if not i16:
-            cn = self._ue("vcbp", 1 if is_intra else 0, cap=63)
+            cn = self._ue("vcbp", 1 if is_intra else 0)
             if self.ch400 or self.ch444:  # ChromaArrayType 0/3: Table 9-4
                 tabm = CBP_INTRA_MONO if is_intra else CBP_INTER_MONO
                 if cn >= 16:

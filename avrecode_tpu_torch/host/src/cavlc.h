@@ -591,7 +591,7 @@ class CavlcSliceParser {
       minc++;
     if (avail(mbx_, mby_ - 1) && pic_->mbclass[mb(mbx_, mby_ - 1)] >= 5)
       minc++;
-    uint32_t raw = ue(K_VMBT, mbt_a + 3 * minc, 63);
+    uint32_t raw = ue(K_VMBT, mbt_a + 3 * minc);
     int intra_base = -1;
     if (st == SLICE_I)
       intra_base = (int)raw;
@@ -630,7 +630,7 @@ class CavlcSliceParser {
     }
 
     if (!i16) {
-      uint32_t cn = ue(K_VCBP, is_intra ? 1 : 0, 63);
+      uint32_t cn = ue(K_VCBP, is_intra ? 1 : 0);
       int cbp;
       if (ch400_ || ch444_) {  // ChromaArrayType 0/3: Table 9-4
         if (cn >= 16) throw Desync("cbp codeNum out of range");

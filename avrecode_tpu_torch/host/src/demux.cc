@@ -797,21 +797,31 @@ static void riff_chunks(const uint8_t* d, uint64_t pos, uint64_t end, F f) {
 static void avi_movi(const uint8_t* d, uint64_t s, uint64_t e,
                      const char* tag_dc, const char* tag_db,
                      H264Stream* stream) {
-  // Iterative worklist: nested LIST chunks ('rec ' groupings) are walked
-  // without recursion so a crafted AVI with thousands of nesting levels
-  // cannot overflow the stack (it falls back to literal like any other
-  // malformed input).
+  // In file order, without recursion (a crafted AVI with thousands of
+  // nesting levels cannot overflow the stack; it falls back to literal like
+  // any other malformed input): a nested LIST ('rec ' grouping) is entered
+  // where it stands, and the list around it resumes after it from the
+  // stack.
   std::vector<std::pair<uint64_t, uint64_t>> work{{s, e}};
   while (!work.empty()) {
-    auto [ws, we] = work.back();
+    auto [pos, end] = work.back();
     work.pop_back();
-    riff_chunks(d, ws, we, [&](const uint8_t* ckid, uint64_t cs, uint64_t ce) {
+    while (pos + 8 <= end) {
+      const uint8_t* ckid = d + pos;
+      uint64_t size = rd32le(d + pos + 4);
+      uint64_t cs = pos + 8, ce = cs + size;
+      if (ce > end) break;
+      pos = ce + (size & 1);  // chunks pad to even
       if (!memcmp(ckid, "LIST", 4)) {  // 'rec ' grouping
-        if (ce > cs + 4) work.emplace_back(cs + 4, ce);
+        if (ce > cs + 4) {
+          work.emplace_back(pos, end);
+          work.emplace_back(cs + 4, ce);
+          break;
+        }
       } else if (!memcmp(ckid, tag_dc, 4) || !memcmp(ckid, tag_db, 4)) {
         scan_annexb_range(d, cs, ce, stream);
       }
-    });
+    }
   }
 }
 

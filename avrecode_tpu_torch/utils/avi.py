@@ -80,16 +80,19 @@ def demux_avi(data, NalSpan):
     spans = []
 
     def walk_movi(s, e):
-        # Iterative worklist: nested LIST ('rec ') groupings are walked
-        # without recursion so a crafted AVI with thousands of nesting
-        # levels cannot raise RecursionError out of demux.
+        # In file order, without recursion (a crafted AVI with thousands of
+        # nesting levels cannot raise RecursionError out of demux): a nested
+        # LIST ('rec ' grouping) is entered where it stands, and the list
+        # around it resumes after it from the stack.
         work = [(s, e)]
         while work:
             ws, we = work.pop()
             for ckid, cs, ce in _chunks(data, ws, we):
                 if ckid == b"LIST":  # 'rec ' grouping
                     if ce > cs + 4:
+                        work.append((ce + ((ce - cs) & 1), we))
                         work.append((cs + 4, ce))
+                        break
                 elif ckid in (tag_dc, tag_db):
                     _scan_annexb(data, cs, ce, spans)
 

@@ -4,6 +4,7 @@
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -o chip_latency chip_latency.cu
 //   ./chip_latency
+//   ./chip_latency where BLOCKS THREADS SMEM_BYTES   # warps to schedulers
 //
 // Each kernel runs one warp over 100,000 dependent steps of one kind and
 // reads clock64() around them; the host times the same launch with CUDA
@@ -12,6 +13,8 @@
 
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
+#include <string>
 #include <cuda_runtime.h>
 
 constexpr int kSteps = 100000;
@@ -69,7 +72,63 @@ void run(const char* name) {
   cudaFree(cycles);
 }
 
-int main() {
+// Where the warps of a launch land: each warp records its SM (%smid) and
+// its warp slot on the SM (%warpid), whose value mod 4 names the SM's
+// sub-partition, i.e. the warp scheduler that issues for it.  The warps
+// spin for a while, so that every block of the launch is resident at once.
+__global__ void where(int* out, long long spin) {
+  if ((threadIdx.x & 31) == 0) {
+    int sm, wid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(wid));
+    const int w = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+    out[2 * w] = sm;
+    out[2 * w + 1] = wid;
+  }
+  const long long t0 = clock64();
+  while (clock64() - t0 < spin) {
+  }
+}
+
+// `./chip_latency where BLOCKS THREADS SMEM_BYTES`: how many blocks put
+// their warps on as many different schedulers as they have warps (up to 4),
+// and how many schedulers of each SM got a warp.
+int where_report(int blocks, int threads, int smem) {
+  const int warps = threads / 32, n = blocks * warps;
+  int* d;
+  cudaMalloc(&d, 8 * n);
+  cudaFuncSetAttribute(where, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  where<<<blocks, threads, smem>>>(d, 2000000);
+  if (cudaDeviceSynchronize() != cudaSuccess) return 1;
+  int* h = new int[2 * n];
+  cudaMemcpy(h, d, 8 * n, cudaMemcpyDeviceToHost);
+  int apart = 0, sms = 0, used[4] = {0, 0, 0, 0};
+  for (int b = 0; b < blocks; ++b) {
+    int mask = 0;
+    for (int w = 0; w < warps; ++w)
+      mask |= 1 << (h[2 * (b * warps + w) + 1] & 3);
+    apart += __builtin_popcount(mask) == (warps < 4 ? warps : 4);
+  }
+  for (int sm = 0; sm < 1024; ++sm) {
+    int mask = 0;
+    for (int w = 0; w < n; ++w)
+      if (h[2 * w] == sm) mask |= 1 << (h[2 * w + 1] & 3);
+    if (mask) ++sms, ++used[__builtin_popcount(mask) - 1];
+  }
+  printf("where %d blocks x %d threads, %d B shared: %d of %d blocks have "
+         "their warps on distinct schedulers; %d SMs used, with 1/2/3/4 "
+         "schedulers busy: %d/%d/%d/%d\n",
+         blocks, threads, smem, apart, blocks, sms, used[0], used[1], used[2],
+         used[3]);
+  delete[] h;
+  cudaFree(d);
+  return 0;
+}
+
+int main(int argc, char** argv) {
+  if (argc == 5 && std::string(argv[1]) == "where")
+    return where_report(atoi(argv[2]), atoi(argv[3]), atoi(argv[4]));
   run<0>("IMAD");
   run<1>("SHF + LOP3");
   run<2>("LOP3 + IADD3");

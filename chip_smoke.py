@@ -132,11 +132,30 @@ EST_SCALING = (1, 128, 1024)  # copies of one trace, kernel alone
 # has half as many int32 lanes as float32 lanes)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
-LANE_OPS_PER_BIN = 30  # integer operations of one lane_encode bin
-STREAM_OPS_PER_BIN = 40  # of one lane_encode_streams bin: the coder's 30,
-# two byte stores, the position and the last-flushable update
-EST_OPS_PER_BIN = 150  # and of one est_encode bin
-DECODE_OPS_PER_BIN = 20  # and of one lane_decode bin
+# Integer operations of each lane algorithm, counted on RangeEncoder.put /
+# RangeDecoder.get (ops/rangecoder.py; 32-bit arithmetic, so the masks are
+# free, and a branch counts as one select), whatever a kernel's SASS spends.
+# A bin costs a fixed part.  A renorm step (the `while rng < TOP` loop) costs
+# a part of its own and moves one byte, so a run's steps are its stream
+# bytes (0.08 a bin on real traces), not the two a bin that the vectorised
+# plain versions compute and select away.  (ops a bin, ops a step):
+# - lane_encode: a bin r1 2 (shift, multiply), low's add with its carry
+#   test and count 3, rng's subtract 1, three selects by the bit 3, the
+#   loop's test 1, the token and carry count packed and stored 4: 14; a step
+#   the byte 1, its carry count and the reset 2, low and rng shifts 2, the
+#   next test 1, the byte and its count into the token 2: 8
+# - lane_encode_streams: a bin the coder's 10; a step the coder's 6, the
+#   byte stored at the stream's position and the position moved 2, its carry
+#   count added onto the byte before 1, the trailing-zero and truncation
+#   scans 1: 10
+# - lane_decode: a bin r1 2, compare 1, code's and rng's subtracts 2 and
+#   selects 2, the loop's test 1, the bit packed 2: 10; a step code and rng
+#   shifts 2, the byte read with its end test 2, or 1, position add 1, the
+#   next test 1: 7
+LANE_OPS = (14, 8)
+STREAM_OPS = (10, 10)
+DECODE_OPS = (10, 7)
+EST_OPS_PER_BIN = 150  # of one est_encode bin
 # dependent instructions of one lane_decode bin (shift, multiply, compare
 # and select, find leading bit and mask, shift), in cycles as
 # chip_latency.cu reads them, and the clock it ran at: a lane's floor,
@@ -245,9 +264,18 @@ def lanes(kind, L, B, seed):
     bins (no model gives it; the coder's range collapses to 0).  "carry":
     p1 near 0xFFFF with 30% of bins coded against it (pending carries and
     0xFF byte runs).  "ffrun": ffrun_lanes, every lane with all its bins
-    (runs of 0xFF as long as the stream, one carry through each)."""
+    (runs of 0xFF as long as the stream, one carry through each).
+    "edges": p1 of 1, 2, 0xFFFE or 0xFFFF on half of the bins, random on
+    the rest, and every lane ends on a 128-bin tile edge (0 and B among
+    them)."""
     rng = np.random.default_rng(seed)
-    if kind in ("random", "zero"):
+    if kind == "edges":
+        p1 = rng.integers(1, 1 << 16, (L, B), dtype=np.int32)
+        ends = np.array([1, 2, 0xFFFE, 0xFFFF], np.int32)
+        pick = rng.random((L, B), dtype=np.float32) < 0.5
+        p1[pick] = ends[rng.integers(0, 4, int(pick.sum()))]
+        bits = rng.random((L, B), dtype=np.float32) * 65536 < p1
+    elif kind in ("random", "zero"):
         p1 = rng.integers(1, 1 << 16, (L, B), dtype=np.int32)
         bits = rng.random((L, B), dtype=np.float32) * 65536 < p1
         if kind == "zero":
@@ -263,6 +291,9 @@ def lanes(kind, L, B, seed):
     lens[: len(special)] = special
     if kind == "ffrun":
         lens[:] = B
+    if kind == "edges":
+        lens = rng.integers(0, B // 128 + 1, L).astype(np.int32) * 128
+        lens[:2] = [0, B][:L]
     bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
     return p1.astype(np.uint16), bitw, lens
 
@@ -324,7 +355,13 @@ STREAM_CASES = [
     ("carry", 50, 288, 257, 1), ("carry", 40, 4096, None, 1000),
     ("zero", 40, 512, None, 1), ("ffrun", 64, 4096, None, 1),
     ("ffrun", 9, 8192, None, 1), ("ffrun", 33, 2048, None, 4),
+    # a block's 32 lanes: one short of a block, one past it, one lane, and
+    # one short of the full group; lanes ending on tile edges, p1 at its ends
+    ("random", 8191, 256, None, 4), ("edges", 1, 4096, None, 4),
+    ("edges", 31, 4096, None, 4), ("edges", 33, 1024, None, 1),
 ]
+LONE_LANE = 32768  # bins of the longest lane the lane coders take (MAX_B)
+LONE_UNIT = 64096  # bins of the longest pinned v1 unit (mbaff_b.mkv, gop)
 
 
 def phase_streams_vs_plain(dev, cases):
@@ -368,6 +405,33 @@ def phase_streams_vs_plain(dev, cases):
         if kind == "ffrun" and bpb == 1 and (walked < 2 or not inside.all()):
             raise AssertionError("the 0xFF-run case made no long carry walk")
     return worst
+
+
+def lone_lane_vs_host(dev, n, seed):
+    """One random lane of n bins through lane_encode_streams, held to the
+    host RangeEncoder (the plain loop over n bin steps is slow); returns
+    the largest absolute difference of the bytes and the length (must be
+    0)."""
+    rng = np.random.default_rng(seed)
+    p1 = rng.integers(1, 1 << 16, (1, n)).astype(np.uint16)
+    bits = rng.random((1, n)) * 65536 < p1
+    bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    enc = RangeEncoder()
+    for b, p in zip(bits[0].tolist(), p1[0].tolist()):
+        enc.put(int(b), p)
+    want = np.frombuffer(bytes(enc.finish()), np.uint8)
+    M = tlc.max_bytes(n, 1)
+    prob = tlc.from_numpy_problem(p1, bitw, np.array([n], np.int32), dev)
+    out, nb, tot = (t.cpu().numpy() for t in tlc.lane_encode_streams(*prob, M))
+    err = abs(int(nb[0]) - len(want))
+    if not err:
+        err = int(np.abs(out[0, :nb[0]].astype(np.int64) - want).max(initial=0))
+    log(f"streams kernel vs host encoder, one lane of {n} bins: "
+        f"max_abs_err={err}, {len(want)} bytes, total {int(tot[0])}")
+    if err:
+        raise AssertionError(f"fused kernel != host encoder on one lane of "
+                             f"{n} bins")
+    return err
 
 
 def phase_overflow(dev, L, B):
@@ -479,6 +543,18 @@ def bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def lane_ops(per, n_bins, n_steps):
+    """Integer operations of a lane algorithm (LANE_OPS, STREAM_OPS,
+    DECODE_OPS) over n_bins bins and n_steps renorm steps."""
+    return per[0] * n_bins + per[1] * n_steps
+
+
+def bound_terms(n_bytes, n_ops):
+    """Both terms of bound_ms, for the log."""
+    return (f"{n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+            f"{n_ops} operations = {n_ops / INT_OPS_PER_S * 1e3:.4f} ms")
+
+
 def lane_stage_split(dev, p1u16, bitw, lens, runs=3):
     """lane_streams_device_compact on one group stage by stage, the device
     idle between stages (a synchronize after each): ({stage: least ms over
@@ -550,23 +626,29 @@ def phase_full_dispatch(dev, clips, L, B, card):
     ms = (k1 + k2) / 2
     # p1 and bit words in, tok and car out, lens/ftok/fcar a lane
     n_bytes = L * B * 2 + L * B // 8 + 2 * L * B * 4 + 3 * L * 4
-    bound, by = bound_ms(n_bytes, LANE_OPS_PER_BIN * L * B)
+    # the bins the lanes hold, and a renorm step for each emitted byte (the
+    # two flush bytes included)
+    n_bins = int(np.minimum(lens, B).sum())
+    n_ops = lane_ops(LANE_OPS, n_bins, emitted)
+    bound, by = bound_ms(n_bytes, n_ops)
     log(f"full dispatch timing [{L}, {B}] on {card}: lane_encode {k1:.3f} / "
         f"{k2:.3f} ms (mean {ms:.3f} ms), plain {plain:.1f} ms, kernel "
         f"{L * B / (ms / 1e3):.4g} bins/s; bound {bound:.3f} ms by {by} "
-        f"({n_bytes} bytes), the kernel is at {bound / ms:.1%} of it")
+        f"({bound_terms(n_bytes, n_ops)}), the kernel is at {bound / ms:.1%} "
+        f"of it")
     s_ms = (s1 + s2) / 2
     # p1, bit words and lens in; the bytes this data emits, nbytes and total
     # out
     s_bytes = L * B * 2 + L * B // 8 + L * 4 + emitted + 2 * L * 4
-    s_bound, s_by = bound_ms(s_bytes, STREAM_OPS_PER_BIN * L * B)
+    s_ops = lane_ops(STREAM_OPS, n_bins, emitted)
+    s_bound, s_by = bound_ms(s_bytes, s_ops)
     chain = B * DECODE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
     log(f"full dispatch timing [{L}, {B}] on {card}: lane_encode_streams "
         f"{s1:.3f} / {s2:.3f} ms (mean {s_ms:.3f} ms, "
         f"{L * B / (s_ms / 1e3):.4g} bins/s), plain {plain + plain_fin:.1f} "
         f"ms (encode {plain:.1f} + finalize {plain_fin:.1f}); bound "
-        f"{s_bound:.3f} ms by {s_by} ({s_bytes} bytes, "
-        f"{s_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms of them), the kernel is "
+        f"{s_bound:.3f} ms by {s_by} ({bound_terms(s_bytes, s_ops)}; "
+        f"{emitted} bytes emitted), the kernel is "
         f"at {s_bound / s_ms:.1%} of it; a lane's chain floor ({B} bins x "
         f"{DECODE_CHAIN_CYCLES} cycles) {chain:.3f} ms, the kernel is at "
         f"{chain / s_ms:.1%} of that; peak device memory "
@@ -831,16 +913,21 @@ def one_long_lane(n, seed, dev):
     return tld.from_numpy_problem(*prob, dev), want
 
 
-def check_decode(label, prob, want):
-    """lane_decode vs lane_decode_plain on one problem, and against the
-    bits that went in where there are any; returns the largest absolute
-    difference of the bit words (must be 0)."""
+def check_decode(label, prob, want, plain=True):
+    """lane_decode vs lane_decode_plain on one problem (plain=False: only
+    against the bits), and against the bits that went in where there are
+    any; returns the largest absolute difference of the bit words (must be
+    0)."""
     t0 = time.time()
     got = tld.lane_decode(*prob)
     torch.cuda.synchronize()
     t_k = time.time() - t0
     t0 = time.time()
-    ref = tld.lane_decode_plain(*prob)
+    if plain:
+        ref = tld.lane_decode_plain(*prob)
+    else:
+        packed = np.packbits(want.astype(bool), axis=1, bitorder="little")
+        ref = torch.from_numpy(packed.view(np.int32)).to(got.device)
     torch.cuda.synchronize()
     t_p = time.time() - t0
     err = max_abs_diff([got], [ref])
@@ -849,7 +936,8 @@ def check_decode(label, prob, want):
         f"{int(tld.unpack_bits(ref).sum())} stream_bytes="
         f"{int(prob[1][-1])} "
         f"{'' if want is None else f'inverts the encoder: {inverts} '}"
-        f"(first call {t_k:.3f} s, plain {t_p:.1f} s)")
+        f"(first call {t_k:.3f} s, {'plain' if plain else 'bits'} "
+        f"{t_p:.1f} s)")
     if err or not torch.equal(got, ref):
         raise AssertionError(f"decode kernel != plain for {label}")
     if not inverts:
@@ -864,6 +952,9 @@ def phase_decode_kernel_vs_plain(dev, cases):
         worst = max(worst, check_decode(f"{kind} L={L} B={B}", prob, want))
     prob, want = one_long_lane(70000, 11, dev)
     worst = max(worst, check_decode("host encoder L=1 B=70000", prob, want))
+    prob, want = one_long_lane(LONE_UNIT, 12, dev)
+    worst = max(worst, check_decode(f"host encoder L=1 B={LONE_UNIT}", prob,
+                                    want, plain=False))
     return worst
 
 
@@ -933,14 +1024,17 @@ def phase_decode_main_path(dev, containers):
 
 
 def decode_bound(prob):
-    """bound_ms of one lane_decode call from its inputs: the stream bytes,
-    p1, lens and offsets read once, the bit words written once."""
+    """(bound_ms of one lane_decode call, both its terms for the log) from
+    its inputs: the stream bytes, p1, lens and offsets read once, the bit
+    words written once; a renorm step for each stream byte (a lane's steps
+    are its bytes, plus the zeros its encoder stripped, less one)."""
     stream, offs, p1u16, lens = prob
     L, Bp = p1u16.shape
-    n_bytes = (int(offs[-1]) + offs.numel() * 8 + L * Bp * 2 + L * 4
-               + L * Bp // 8)
+    n_stream = int(offs[-1])
+    n_bytes = n_stream + offs.numel() * 8 + L * Bp * 2 + L * 4 + L * Bp // 8
     n_bins = int(lens.clamp(0, Bp).sum())
-    return (*bound_ms(n_bytes, DECODE_OPS_PER_BIN * n_bins), n_bytes)
+    n_ops = lane_ops(DECODE_OPS, n_bins, n_stream)
+    return (*bound_ms(n_bytes, n_ops), bound_terms(n_bytes, n_ops))
 
 
 def phase_decode_full(dev, group, card):
@@ -960,23 +1054,35 @@ def phase_decode_full(dev, group, card):
     if err or not torch.equal(got, ref[0]):
         raise AssertionError("full group: decode kernel != plain")
     ms = (k1 + k2) / 2
-    bound, by, n_bytes = decode_bound(prob)
+    bound, by, terms = decode_bound(prob)
     chain = B * DECODE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
     log(f"decode full group [{L}, {B}] on {card}: bits equal the group's "
         f"input bits, kernel = plain at the full group; kernel {k1:.3f} / "
         f"{k2:.3f} ms (mean {ms:.3f} ms, {L * B / (ms / 1e3):.4g} bins/s), "
-        f"plain {plain:.1f} ms; bound {bound:.3f} ms by {by} ({n_bytes} "
-        f"bytes), the kernel is at {bound / ms:.1%} of it; a lane's chain "
+        f"plain {plain:.1f} ms; bound {bound:.3f} ms by {by} ({terms}), the "
+        f"kernel is at {bound / ms:.1%} of it; a lane's chain "
         f"floor ({B} bins x {DECODE_CHAIN_CYCLES} cycles) {chain:.3f} ms, "
         f"the kernel is at {chain / ms:.1%} of that")
     del got, ref, prob
+    for n in (1, 31, 33, L - 1):  # a block's edges, against the input bits
+        part = tld.from_numpy_problem(*tld.pack_streams(streams[:n]),
+                                      p1u16[:n], lens[:n], dev)
+        if not np.array_equal(tld.lane_decode(*part).cpu().numpy(), bitw[:n]):
+            raise AssertionError(f"full group: the first {n} lanes decoded "
+                                 f"alone differ from their input bits")
+    log(f"decode full group: its first 1, 31, 33 and {L - 1} lanes decoded "
+        f"alone equal their input bits")
 
     data = open(os.path.join(ROOT, "data", "mbaff_b.mkv"), "rb").read()
     _, units = tpipe.record_units(native.compress(data, scope="gop"))
     longest = max(units, key=lambda m: len(m.rec_p1s))
-    *arrays, _ = tpipe.pack_units([longest])
+    *arrays, spans = tpipe.pack_units([longest])
     prob = tld.from_numpy_problem(*arrays, dev)
-    tld.lane_decode(*prob)
+    unit_bits = tpipe.split_unit_bits(tld.lane_decode(*prob).cpu().numpy(),
+                                      arrays[3], spans)
+    if unit_bits != [longest.rec_bits]:
+        raise AssertionError("longest v1 unit: the device's bins differ from "
+                             "the host model pass's")
     one = cuda_ms(lambda: tld.lane_decode(*prob), 5)
     n = len(longest.rec_p1s)
     log(f"decode longest v1 unit (mbaff_b.mkv gop, {n} bins, one thread) on "
@@ -1360,7 +1466,8 @@ def main():
         ("random", 1, 256), ("random", 5, 32), ("random", 33, 96),
         ("random", 70, 160), ("random", 31, 4128), ("random", 1000, 4096),
         ("carry", 1000, 4096), ("carry", 97, 1184), ("zero", 40, 512)])
-    s_err = phase_streams_vs_plain(dev, STREAM_CASES)
+    s_err = max(phase_streams_vs_plain(dev, STREAM_CASES),
+                lone_lane_vs_host(dev, LONE_LANE, 5))
     overflow_lane = phase_overflow(dev, 1000, 4096)
     clock.mark("3 lane kernels vs plain")
 
@@ -1402,7 +1509,9 @@ def main():
         ("random", 1, 256), ("random", 5, 32), ("random", 33, 96),
         ("random", 70, 160), ("random", 31, 4128), ("random", 1000, 4096),
         ("carry", 1000, 4096), ("carry", 97, 1184), ("zero", 40, 512),
-        ("bytes", 50, 1184), ("bytes", 200, 4096)])
+        ("bytes", 50, 1184), ("bytes", 200, 4096), ("random", 8191, 256),
+        ("edges", 1, 4096), ("edges", 31, 4096), ("edges", 33, 1024),
+        ("ffrun", 33, 2048), ("bytes", 33, 4096)])
 
     # 10 decode main path; phase_decode_main_path counts the launches of
     # exactly its device_decompress calls

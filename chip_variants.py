@@ -12,7 +12,7 @@ of the four is read from NAME: it starts with "lane", "streams", "est" or
 once; its outputs are held against the package's kernel on the same
 tensors (exact), and both are timed with CUDA events, two windows each.  A
 variant whose NAME holds "ablate" is one with a piece taken out on purpose
-(csrc/lane_streams.cu has -DSTREAMS_NO_SETTLE and -DSTREAMS_NO_RING): it is
+(csrc/lane_streams.cu has -DSTREAMS_NO_SETTLE and -DSTREAMS_NO_STORES): it is
 timed, and its wrong output is reported but not refused.
 
   lane  one full dispatch group [8192, 16384] and the first 55 lanes of it

@@ -21,7 +21,9 @@ from avrecode_tpu_torch.ops import lane_decoder as tld
 from avrecode_tpu_torch.parallel.pipeline import (
     device_compress, device_decompress, extract_traces, make_mesh,
     multichip_step)
-from chip_smoke import EST_CASES, EST_SWEEP, STREAM_CASES, streams_diff
+from chip_smoke import (
+    EST_CASES, EST_SWEEP, LONE_LANE, LONE_UNIT, STREAM_CASES,
+    lone_lane_vs_host, one_long_lane, streams_diff)
 from chip_smoke import decode_problem as _decode_problem
 from chip_smoke import est_problem as _est_problem
 from chip_smoke import lanes as _problem
@@ -61,7 +63,8 @@ def test_kernel_matches_plain(cuda, kind, L, B):
 
 # chip_smoke's cases of the fused kernel: carry stress, runs of 0xFF longer
 # than the kernel's ring with a carry through them into position 0, lens of
-# 0, 1 and B, lane counts off a warp's 16, bounds that lanes run past
+# 0, 1 and B, lane counts off a block's 32 (1, 31, 33, 8,191), lanes that
+# end on a tile edge, p1 at its ends, bounds that lanes run past
 @pytest.mark.parametrize("kind, L, B, cut, bits_per_byte", STREAM_CASES)
 def test_streams_kernel_matches_plain(cuda, kind, L, B, cut, bits_per_byte):
     p1u16, bitw, lens = _problem(kind, L, B, seed=L + B)
@@ -82,6 +85,11 @@ def test_streams_kernel_matches_plain(cuda, kind, L, B, cut, bits_per_byte):
         *(t.cpu().numpy() for t in tlc.lane_encode(*prob)), lens)
     for l in np.flatnonzero(tot <= M):
         assert bytes(out[l, : nb[l]]) == host[l]
+
+
+def test_streams_kernel_lone_lane(cuda):
+    """One lane of the most bins a lane takes, held to the host encoder."""
+    assert lone_lane_vs_host(cuda, LONE_LANE, 5) == 0
 
 
 def test_kernel_streams_and_overflow_path(cuda):
@@ -209,13 +217,16 @@ def test_est_main_path_launches_kernel(cuda):
 
 
 # encoder output of every kind and arbitrary bytes ("bytes": streams of 0-3
-# bytes first, p1 = 0 and 0xFFFF among the bins); lane counts off a warp's
-# 16 lanes, widths off the kernel's 128-bin tile
+# bytes first, p1 = 0 and 0xFFFF among the bins); lane counts off a block's
+# 32 lanes (1, 31, 33, 8,191), widths off the kernel's 128-bin tile, lanes
+# that end on a tile edge, p1 at its ends, streams with long runs of 0xFF
 @pytest.mark.parametrize("kind, L, B", [
     ("random", 1, 32), ("random", 5, 256), ("random", 33, 96),
     ("random", 70, 160), ("carry", 97, 1184), ("random", 300, 1024),
     ("zero", 40, 512), ("bytes", 16, 128), ("bytes", 50, 1184),
-    ("bytes", 7, 4128),
+    ("bytes", 7, 4128), ("random", 8191, 256), ("edges", 1, 4096),
+    ("edges", 31, 4096), ("edges", 33, 1024), ("ffrun", 33, 2048),
+    ("bytes", 33, 4096),
 ])
 def test_decode_kernel_matches_plain(cuda, kind, L, B):
     prob, want = _decode_problem(kind, L, B, L + B, cuda)
@@ -254,6 +265,14 @@ def test_decode_kernel_long_lane_and_unaligned_starts(cuda):
     ref = tld.unpack_bits(tld.lane_decode_plain(*short))
     np.testing.assert_array_equal(bits[1:], ref[1:])
     assert not bits[1:, 400:].any()
+
+
+def test_decode_kernel_lone_unit(cuda):
+    """One lane as long as the longest pinned v1 unit, from the host
+    encoder: the bits that went in come out."""
+    prob, want = one_long_lane(LONE_UNIT, 12, cuda)
+    np.testing.assert_array_equal(tld.unpack_bits(tld.lane_decode(*prob)),
+                                  want)
 
 
 def test_decode_kernel_rejects_misaligned_p1(cuda):

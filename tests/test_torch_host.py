@@ -2,7 +2,11 @@
 models, ops tables, utils}) computes what the JAX package's computes:
 containers, decoded bytes, extracted traces, envelopes and tables, on the
 pinned clips at slice and gop scope.  Tolerance: exact equality (all of it
-is integer arithmetic on bytes)."""
+is integer arithmetic on bytes).
+
+Where the port differs from the JAX package on purpose, none of these
+clips reaches: an AVI's nested `rec ` LISTs are walked in file order, and a
+CAVLC ue() prefix past 31 zeros is refused (tests/test_torch_host_faults.py)."""
 
 import os
 import types
