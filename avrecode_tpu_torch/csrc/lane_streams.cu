@@ -8,6 +8,11 @@
 //
 //   p1     uint16 [L, Bp]       exact per-bin model probability of a 1
 //                               (Bp a multiple of 32, base 16-byte aligned)
+//          or, for lane_encode_streams_idx_launch (the index form, which
+//          replaces _lane_pipeline_idx_jit), uint8 [L, 3 * Bp / 2]: two
+//          12-bit indices into the 4,096-entry squash table `sq` (uint16)
+//          in three bytes, the even bin's in the low 12 bits; a bin's p1 is
+//          sq[index]
 //   bitw   int32  [L, Bp / 32]  the bins' bits, little-endian 32-bit words
 //   lens   int32  [L]           valid bins per lane (bins past it are frozen)
 //   out    uint8  [L, M]        the lane's stream bytes (M a multiple of 8);
@@ -17,9 +22,10 @@
 //                               included; total > M: the lane ran past the
 //                               bound, its out row and nbytes mean nothing
 //
-// Bounds on this card.  Bytes: 2 + 1/8 B read a bin, at most M written a
-// lane: 285 MB + 34 MB at [8192, 16384] with M = 4104, 0.095 ms at 3.35
-// TB/s.  Operations: the algorithm's 10 integer operations a bin and 10 a
+// Bounds on this card.  Bytes: 2 + 1/8 B read a bin (1.5 + 1/8 in the index
+// form), at most M written a lane: 285 MB + 34 MB at [8192, 16384] with M =
+// 4104, 0.095 ms at 3.35 TB/s (218 MB + 34 MB, 0.075 ms, in the index
+// form).  Operations: the algorithm's 10 integer operations a bin and 10 a
 // stream byte (chip_smoke.py's STREAM_OPS), 0.04 ms: the bytes bind.
 // The floor that counts is the chain: a lane is one serial recurrence over
 // (low, rng), so Bp bins cost Bp times one bin's dependent steps (~53
@@ -81,6 +87,17 @@
 //     one (a running "last non-zero" would be wrong: a ripple turns 0xFF
 //     into 0x00).
 //   * A block codes only as many tiles as its longest lane has bins.
+//   * The index form adds a third warp, the producer, and leaves the chain
+//     warp as it is in the u16 form.  The producer copies each tile of
+//     packed indices (192 bytes a row, 12 cp.async chunks) and bit words
+//     into shared memory a tile ahead, looks every 12-bit field up in the
+//     squash table (8 KB of shared memory, copied in by the block at its
+//     start) and writes the u16 form's p1 tile, which the chain warp reads
+//     as it reads an uploaded one; named barriers P1FULL and P1EMPTY a
+//     buffer hand the tiles over.  Warps 0, 1 and 2 are the chain, the
+//     producer and the stream warp: with two blocks an SM the fifth and
+//     sixth warps share a scheduler with the first two, so a chain warp
+//     shares its scheduler with a producer, the lightest of the three.
 // Tried on the way ([8192, 16384]; the one-thread design 0.795-0.814 ms in
 // the same calls): the same split with the record carrying the count and
 // the stream warp's held-byte select written as nested conditionals, which
@@ -90,6 +107,13 @@
 // its 32 lanes' carries one after another); held byte and masks with the
 // subtract and select still on the chain, 0.627-0.635 ms.
 //
+// The index form, tried on the way ([8192, 16384]; the u16 form 0.595-0.599
+// ms in the same call): the chain warp unpacking as it loads, three word
+// loads, eight fields and eight table loads for 8 bins on the chain warp,
+// 0.716-0.724 ms; the stream warp writing the p1 tile a tile ahead,
+// 0.848-0.849 (it then sets the pace); the producer warp (kept), 0.621-0.623,
+// and 0.531 against 0.562-0.566 with 55 lanes, where no scheduler is shared.
+//
 // Two switches take a piece out, for chip_variants.py to time what it costs
 // (the output is then wrong): -DSTREAMS_NO_SETTLE skips the pass after a
 // tile, -DSTREAMS_NO_STORES the two stores of a record.  All times are of
@@ -98,12 +122,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "squash_idx.cuh"
+
 namespace {
 
 constexpr uint32_t kTop = 1u << 24;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRows = 32;                     // lanes a block
 constexpr int kThreads = 2 * kRows;           // the chain and the stream warp
+constexpr int kMaxThreads = 3 * kRows;        // and the index form's producer
 constexpr int kTileBins = 128;                // bins a lane, per tile
 constexpr int kP1Row = kTileBins * 2 + 16;    // bytes: p1, then bit words
 constexpr int kP1Tile = kRows * kP1Row;       // 8,704
@@ -119,13 +146,23 @@ constexpr int kUnsent = 272;
 constexpr int kUnsentRow = 8 + kUnsent + 16;      // elements
 constexpr int kUnsentTile = kRows * kUnsentRow * 2;     // 18,944 bytes
 constexpr int kSmemBytes = 2 * kP1Tile + 2 * kRecTile + kUnsentTile;  // 70,144
+// the index form's: the squash table, then two tiles of packed indices, a
+// row 192 bytes and the row's four bit words
+constexpr int kSquashBytes = 4096 * 2;
+constexpr int kRawRow = kTileBins * 3 / 2 + 16;
+constexpr int kRawTile = kRows * kRawRow;      // 6,656
+constexpr int kIdxSmemBytes = kSmemBytes + kSquashBytes + 2 * kRawTile;
 
 constexpr uint32_t kValue = 0x3FFu;  // an element's byte, with its excess
 constexpr int kCountShift = 12;      // the token's carry count above it
 
-// named barriers: FULL + b (records of buffer b written), EMPTY + b (read)
+// named barriers of two warps: FULL + b (records of buffer b written),
+// EMPTY + b (read); the index form's P1FULL + b (p1 tile b written) and
+// P1EMPTY + b (coded)
 constexpr int kBarFull = 1;
 constexpr int kBarEmpty = 3;
+constexpr int kBarP1Full = 5;
+constexpr int kBarP1Empty = 7;
 
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
@@ -275,8 +312,76 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// The index form's producer: copies tiles of packed indices and bit words
+// into shared memory (cp.async, a tile a commit group, empty groups past
+// the last tile) and writes them out as the u16 form's p1 tiles.
+struct Producer {
+  const unsigned char* pk;  // packed index rows, 3 * Bp / 2 bytes each
+  const uint16_t* sq;       // the squash table in shared memory
+  const uint32_t* bitw;
+  unsigned char* s_raw;
+  unsigned char* s_p1;
+  int tid, lane0, rows, nt, Bp;
+
+  __device__ __forceinline__ void load(int t) const {
+    if (t < nt) {
+      const int b0 = t * kTileBins;
+      const int tw = min(kTileBins, Bp - b0);  // Bp % 32 == 0
+      unsigned char* buf = s_raw + (t & 1) * kRawTile;
+      const int c = tid & 15;  // two rows a pass, 12 chunks a full tile
+      if (c < tw * 3 / 32)
+        for (int r = tid >> 4; r < rows; r += 2)
+          cp_async16(buf + r * kRawRow + c * 16,
+                     pk + static_cast<size_t>(lane0 + r) * Bp * 3 / 2 +
+                         static_cast<size_t>(b0) * 3 / 2 + c * 16);
+      if (tid < rows)
+        for (int w = 0; w < tw / 32; ++w)
+          cp_async4(buf + tid * kRawRow + kTileBins * 3 / 2 + w * 4,
+                    bitw + static_cast<size_t>(lane0 + tid) * (Bp / 32) +
+                        b0 / 32 + w);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  // tile t, its copy landed (the group after it may be in flight), into p1
+  // tile t & 1: a row a thread, 8 bins (three words, 12-bit fields) a step
+  __device__ __forceinline__ void convert(int t) const {
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncwarp();
+    if (tid < rows) {
+      const int tw = min(kTileBins, Bp - t * kTileBins);
+      const unsigned char* src = s_raw + (t & 1) * kRawTile + tid * kRawRow;
+      unsigned char* dst = s_p1 + (t & 1) * kP1Tile + tid * kP1Row;
+      for (int g = 0; g < tw / 8; ++g) {
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(src + g * 12);
+        *reinterpret_cast<uint4*>(dst + g * 16) =
+            unpack8_p1(w[0], w[1], w[2], sq);
+      }
+      *reinterpret_cast<uint4*>(dst + kTileBins * 2) =
+          *reinterpret_cast<const uint4*>(src + kTileBins * 3 / 2);
+    }
+    __syncwarp();  // the raw buffer may be refilled
+  }
+};
+
+// The producer warp's loop: tile t into p1 buffer t & 1 once the chain warp
+// has coded tile t - 2 from it.
+__device__ __forceinline__ void producer_warp(const Producer& prod) {
+  if (prod.nt == 0) return;
+  prod.load(0);
+  prod.load(1);
+  for (int t = 0; t < prod.nt; ++t) {
+    if (t >= 2) bar_sync(kBarP1Empty + (t & 1));
+    prod.convert(t);
+    bar_arrive(kBarP1Full + (t & 1));
+    prod.load(t + 2);
+  }
+}
+
 // The chain warp: codes the block's lanes tile by tile and hands over a
-// record a bin, then the flush.
+// record a bin, then the flush.  kFed (the index form): the producer writes
+// the p1 tiles; else the chain warp copies them in itself.
+template <bool kFed>
 __device__ __forceinline__ void chain_warp(
     const uint16_t* __restrict__ p1, const uint32_t* __restrict__ bitw,
     unsigned char* s_p1, unsigned char* s_rec, int tid, int lane0, int rows,
@@ -304,9 +409,11 @@ __device__ __forceinline__ void chain_warp(
   };
 
   ChainState st{0u, 0xFFFFFFFFu};
-  if (nt > 0) load_tile(0);
+  if (!kFed && nt > 0) load_tile(0);
   for (int t = 0; t < nt; ++t) {
-    if (t + 1 < nt) {
+    if (kFed) {
+      bar_sync(kBarP1Full + (t & 1));
+    } else if (t + 1 < nt) {
       load_tile(t + 1);
       asm volatile("cp.async.wait_group 1;" ::: "memory");
     } else {
@@ -336,6 +443,8 @@ __device__ __forceinline__ void chain_warp(
     }
     __syncwarp();  // before the next tile overwrites the p1 buffer
     bar_arrive(kBarFull + (t & 1));
+    if (kFed && t + 3 <= nt)
+      bar_arrive(kBarP1Empty + (t & 1));  // the producer may refill
   }
 
   // the flush as one more record, in the buffer of "tile" nt: low rounded
@@ -456,8 +565,10 @@ __device__ __forceinline__ void stream_warp(
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
+template <bool kIdx>
+__global__ void __launch_bounds__(kMaxThreads)
+lane_encode_streams_kernel(const void* __restrict__ p1,
+                           const uint16_t* __restrict__ sq,
                            const uint32_t* __restrict__ bitw,
                            const int32_t* __restrict__ lens,
                            unsigned char* out, int32_t* __restrict__ nbytes,
@@ -467,6 +578,8 @@ lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
   unsigned char* s_rec = smem + 2 * kP1Tile;   // two record tiles
   uint16_t* s_unsent = reinterpret_cast<uint16_t*>(smem + 2 * kP1Tile +
                                                  2 * kRecTile);
+  uint16_t* s_sq = reinterpret_cast<uint16_t*>(smem + kSmemBytes);
+  unsigned char* s_raw = smem + kSmemBytes + kSquashBytes;
 
   const int tid = threadIdx.x & 31;  // the lane's row in the block
   const int lane0 = blockIdx.x * kRows;
@@ -480,11 +593,41 @@ lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
   const int nt =
       (__reduce_max_sync(kFull, n_valid) + kTileBins - 1) / kTileBins;
 
-  if (threadIdx.x < 32)
-    chain_warp(p1, bitw, s_p1, s_rec, tid, lane0, rows, n_valid, nt, Bp);
+  if (kIdx) {  // the squash table, 16 bytes a thread and step
+    for (int k = threadIdx.x; k < kSquashBytes / 16; k += kMaxThreads)
+      reinterpret_cast<uint4*>(s_sq)[k] = reinterpret_cast<const uint4*>(sq)[k];
+    __syncthreads();
+  }
+  const int warp = threadIdx.x >> 5;
+  if (warp == 0)
+    chain_warp<kIdx>(static_cast<const uint16_t*>(p1), bitw, s_p1, s_rec, tid,
+                     lane0, rows, n_valid, nt, Bp);
+  else if (kIdx && warp == 1)
+    producer_warp(Producer{static_cast<const unsigned char*>(p1), s_sq, bitw,
+                           s_raw, s_p1, tid, lane0, rows, nt, Bp});
   else
     stream_warp(s_rec, s_unsent, out, nbytes, total, tid, lane0, rows, n_valid,
                 nt, Bp, M);
+}
+
+template <bool kIdx>
+int launch(const void* p1, const void* sq, const void* bitw, const void* lens,
+           void* out, void* nbytes, void* total, int L, int Bp, int M,
+           void* stream) {
+  const int smem = kIdx ? kIdxSmemBytes : kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      lane_encode_streams_kernel<kIdx>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lane_encode_streams_kernel<kIdx>
+      <<<(L + kRows - 1) / kRows, kIdx ? kMaxThreads : kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          p1, static_cast<const uint16_t*>(sq),
+          static_cast<const uint32_t*>(bitw),
+          static_cast<const int32_t*>(lens), static_cast<unsigned char*>(out),
+          static_cast<int32_t*>(nbytes), static_cast<int32_t*>(total), L, Bp,
+          M);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -493,14 +636,18 @@ extern "C" int lane_encode_streams_launch(const void* p1, const void* bitw,
                                           const void* lens, void* out,
                                           void* nbytes, void* total, int L,
                                           int Bp, int M, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      lane_encode_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lane_encode_streams_kernel<<<(L + kRows - 1) / kRows, kThreads, kSmemBytes,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(p1), static_cast<const uint32_t*>(bitw),
-      static_cast<const int32_t*>(lens), static_cast<unsigned char*>(out),
-      static_cast<int32_t*>(nbytes), static_cast<int32_t*>(total), L, Bp, M);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(p1, nullptr, bitw, lens, out, nbytes, total, L, Bp, M,
+                       stream);
+}
+
+// p1pk: uint8 [L, 3 * Bp / 2] packed squash indices (16-byte aligned); sq:
+// the squash table, uint16 [4096] on the device (16-byte aligned)
+extern "C" int lane_encode_streams_idx_launch(const void* p1pk, const void* sq,
+                                              const void* bitw,
+                                              const void* lens, void* out,
+                                              void* nbytes, void* total,
+                                              int L, int Bp, int M,
+                                              void* stream) {
+  return launch<true>(p1pk, sq, bitw, lens, out, nbytes, total, L, Bp, M,
+                      stream);
 }

@@ -148,6 +148,10 @@ def _load():
         ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
         ctypes.POINTER(ctypes.c_int),
     ]
+    lib.avtpu_lane_pack.restype = ctypes.c_int
+    lib.avtpu_lane_pack.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 4)
     lib.avtpu_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     _LIB = lib
     return _LIB
@@ -335,6 +339,44 @@ def extract(data, scope="slice", threads=1, want_slots=True):
         ti += 1
         blocks.append((KIND_SLICE, nal_size, head, mb_count, drop, tail, t, gaps))
     return sps, pps, blocks, traces
+
+
+def lane_pack(traces, B, Bp):
+    """One-pass lane packer (src/lanepack.cc) over NativeTraces' records:
+    each trace cut into ceil(T / B) lanes (at least one), rows of Bp >= B
+    bins (a multiple of 32), every record read once.
+
+    Returns (p1, bitw, lens, spans): p1 is the index form, uint8
+    [L, 3 * Bp / 2] (two 12-bit squash-table indices in three bytes, as
+    ops/lane_coder.pack_p1_idx packs them), where every valid bin's p1 lies
+    in the squash table's image, and the u16 form, uint16 [L, Bp], where
+    one does not; bitw int32 [L, Bp / 32], lens int32 [L], spans[i] the
+    (lo, hi) lane range of traces[i].  Runs on host threads with the GIL
+    released."""
+    import numpy as np
+
+    lib = _load()
+    assert lib is not None
+    counts = np.array([len(t) for t in traces], np.int64)
+    k = np.maximum(1, -(-counts // B))
+    ends = np.cumsum(k)
+    lane0 = ends - k
+    L = int(ends[-1]) if len(ends) else 0
+    recs = [np.ascontiguousarray(t.recs, np.uint64) for t in traces]
+    ptrs = (ctypes.c_void_p * max(len(recs), 1))(
+        *[r.ctypes.data for r in recs])
+    pk = np.empty((L, 3 * Bp // 2), np.uint8)
+    p1 = np.empty((L, Bp), np.uint16)  # written only where pk is not
+    bitw = np.empty((L, Bp // 32), np.int32)
+    lens = np.empty(L, np.int32)
+    form = lib.avtpu_lane_pack(
+        ctypes.cast(ptrs, ctypes.c_void_p), counts.ctypes.data,
+        lane0.ctypes.data, len(recs), B, Bp, L, pk.ctypes.data,
+        p1.ctypes.data, bitw.ctypes.data, lens.ctypes.data)
+    if form < 0:
+        raise ValueError(f"lane_pack: bad shapes (B={B}, Bp={Bp})")
+    spans = list(zip(lane0.tolist(), ends.tolist()))
+    return (pk if form else p1), bitw, lens, spans
 
 
 def decompress(blob, threads=1):

@@ -42,10 +42,18 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def nvcc_command(out, sources, flags=()):
+    """nvcc with the package's flags, csrc/ on the include path (its
+    headers, *.cuh), extra `flags`, compiling `sources` into `out`."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), *flags, "-o", str(out),
+            *map(str, sources)]
+
+
 def library_path():
-    """Where the library for the current sources and flags is built."""
+    """Where the library for the current sources, headers and flags is
+    built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libavtpu_torch_{h.hexdigest()[:16]}.so"
@@ -53,7 +61,7 @@ def library_path():
 
 def _compile(out):
     """Run nvcc on the sources into `out`; returns (command, result)."""
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, _sources())]
+    cmd = nvcc_command(out, _sources())
     return cmd, subprocess.run(cmd, capture_output=True, text=True)
 
 
@@ -95,6 +103,11 @@ def load():
     lib.lane_encode_streams_launch.argtypes = (
         [ptr] * 6 + [ctypes.c_int] * 3 + [ptr])
     lib.lane_encode_streams_launch.restype = ctypes.c_int
+    lib.lane_encode_streams_idx_launch.argtypes = (
+        [ptr] * 7 + [ctypes.c_int] * 3 + [ptr])
+    lib.lane_encode_streams_idx_launch.restype = ctypes.c_int
+    lib.unpack_p1_idx_launch.argtypes = [ptr] * 3 + [ctypes.c_longlong, ptr]
+    lib.unpack_p1_idx_launch.restype = ctypes.c_int
     lib.est_encode_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 6 + [ptr]
     lib.est_encode_launch.restype = ctypes.c_int
     lib.lane_decode_launch.argtypes = (

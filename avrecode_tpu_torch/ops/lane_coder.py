@@ -30,18 +30,32 @@ uploads through reused pinned staging buffers and launches without a host
 sync, and lane_collect reads back the lengths first and then only the
 columns that hold stream bytes.
 
+The lane problem comes in two upload forms, as in the JAX package:
+  index form  uint8 [L, 3 * Bp / 2]: two 12-bit squash-table indices in three
+              bytes (pack_p1_idx), 1.5 B a bin; the card takes p1 back from
+              the table.  lane_encode_streams_idx (the same kernel, reading
+              indices; replaces _lane_pipeline_idx_jit) codes it.
+  u16 form    uint16 [L, Bp]: p1 itself, 2 B a bin; lane_encode_streams.
+The packer picks the form (pack_lanes): the index form where every valid
+bin's p1 lies in the squash table's image, which holds for every trace the
+native recorder makes, the u16 form otherwise.  lane_dispatch_compact codes
+each group in the form of its rows.
+
 torch defines no int32 overflow, so the plain version holds uint32 values
 in int64 tensors with explicit & 0xFFFFFFFF masks; a plain compare is then
 the unsigned compare the JAX version builds from a sign flip.
 """
 
+import functools
 import threading
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..host import native
 from ..models.h264_model import _make_envelope
+from ._mix_tables import SQUASH
 
 TOP = 1 << 24
 CHUNK = 256  # bin-axis padding: the packers store bits as 32-bit words
@@ -101,29 +115,158 @@ def flush_state(low, pend):
     return ftok, fcar
 
 
-def _check_problem(p1u16, bitw, lens):
-    """The wrapper's contract: the compact lane problem, contiguous, on one
-    device, with B a multiple of 32 and at most MAX_B."""
-    if (p1u16.dtype, bitw.dtype, lens.dtype) != (torch.uint16, torch.int32,
-                                                  torch.int32):
-        raise TypeError(
-            "lane problem must be (uint16 p1, int32 bit words, int32 lens), "
-            f"got {p1u16.dtype}, {bitw.dtype}, {lens.dtype}"
+# ---------------------------------------------------------------------------
+# 12-bit probability upload (the JAX package's pack_p1_idx): every p1 the
+# native recorder emits is kSquash[dot + 2048] (model.h requantizes the APM
+# blend onto the squash grid), so the host ships the 4,096-entry squash
+# table's INDEX, two in three bytes (1.5 B a bin against 2), and the card
+# takes the exact p1 back from the table.  Any index with SQUASH[i] == p1
+# serves: the table flattens into runs of equal values near the rails.
+
+
+@functools.cache
+def _squash_tables():
+    """(SQUASH int32 [4096], reverse map uint16 [65536], in-image flags bool
+    [65536]), built once.  The reverse map keeps the last index of a run
+    of equal values.  p1 = 0 is flagged in the image and maps to index 0,
+    for padding; pack_p1_idx refuses it in a valid bin."""
+    sq = np.asarray(SQUASH, np.int32)
+    rev = np.zeros(1 << 16, np.uint16)
+    ok = np.zeros(1 << 16, bool)
+    rev[sq] = np.arange(4096, dtype=np.uint16)
+    ok[sq] = True
+    ok[0] = True
+    return sq, rev, ok
+
+
+def pack_p1_idx(p1u16, lens):
+    """uint16 p1 [L, B] (B even) and lens [L] -> (uint8 [L, 3 * B / 2],
+    True), or (None, False) where the p1 of a valid bin (bin < lens) lies
+    outside the squash table's image: the caller keeps the u16 form.  The
+    layout is the JAX package's: two indices in three bytes, the even bin's
+    in the low 12 bits.  Unlike the JAX function, p1 = 0 counts as in the
+    image only past lens, where it is padding (index 0): in a valid bin it
+    must code as 0, not as SQUASH[0] = 22."""
+    _, rev, okt = _squash_tables()
+    p1u16 = np.asarray(p1u16, np.uint16)
+    live = np.arange(p1u16.shape[1])[None, :] < np.asarray(lens)[:, None]
+    if not (okt[p1u16] & ((p1u16 != 0) | ~live)).all():
+        return None, False
+    idx = rev[p1u16]
+    ev, od = idx[:, 0::2], idx[:, 1::2]
+    L, H = ev.shape
+    out = np.empty((L, H, 3), np.uint8)
+    out[:, :, 0] = ev & 0xFF
+    out[:, :, 1] = (ev >> 8) | ((od & 0xF) << 4)
+    out[:, :, 2] = od >> 4
+    return out.reshape(L, 3 * H), True
+
+
+@functools.cache
+def _squash_on(dev):
+    """SQUASH as a uint16 tensor on `dev` (the kernels' table), made once a
+    device."""
+    return torch.from_numpy(_squash_tables()[0].astype(np.uint16)).to(dev)
+
+
+def index_form(p1):
+    """Is p1 (numpy or torch) in the index form, uint8 packed indices?"""
+    return p1.dtype == (torch.uint8 if isinstance(p1, torch.Tensor)
+                        else np.uint8)
+
+
+def lane_bins(p1):
+    """Bins a lane row holds (Bp) in either upload form: uint8 packed
+    indices [L, 3 * Bp / 2] or uint16 p1 [L, Bp] (numpy or torch)."""
+    w = p1.shape[1]
+    return w * 2 // 3 if index_form(p1) else w
+
+
+def unpack_p1_idx_plain(p1pk):
+    """Plain torch version of the unpack: packed indices uint8 [L, 3 * B / 2]
+    -> uint16 p1 [L, B] through the squash table (the unpack and take of
+    the JAX _lane_pipeline_idx_jit).  Padding (index 0) becomes
+    SQUASH[0] = 22, which the coders never read (it lies past lens)."""
+    L, W = p1pk.shape
+    b = p1pk.to(torch.int64).reshape(L, W // 3, 3)
+    ev = b[:, :, 0] | ((b[:, :, 1] & 0xF) << 8)
+    od = (b[:, :, 1] >> 4) | (b[:, :, 2] << 4)
+    idx = torch.stack([ev, od], dim=-1).reshape(L, -1)
+    sq = torch.from_numpy(_squash_tables()[0]).to(p1pk.device)
+    return sq[idx].to(torch.uint16)
+
+
+def unpack_p1_idx(p1pk):
+    """Kernel wrapper of the unpack (see unpack_p1_idx_plain): CUDA tensors
+    launch the CUDA kernel csrc/p1_idx.cu on the current stream without
+    synchronising (raises if it cannot build or launch); CPU tensors run
+    unpack_p1_idx_plain.  unpack_p1_idx.launches counts kernel launches.
+    The lane path calls it only where lane_collect codes an index-form
+    group again (its overflow fallback)."""
+    if p1pk.dtype != torch.uint8 or p1pk.dim() != 2 or p1pk.shape[1] % 48:
+        raise ValueError(f"packed indices must be uint8 [L, 3 * B / 2] with "
+                         f"B a multiple of 32, got {p1pk.dtype} "
+                         f"{tuple(p1pk.shape)}")
+    if not p1pk.is_contiguous() or p1pk.data_ptr() % 4:
+        raise ValueError("packed indices must be contiguous, from a 4-byte "
+                         "boundary (the kernel reads them in 4-byte words)")
+    dev = p1pk.device
+    if dev.type == "cpu":
+        return unpack_p1_idx_plain(p1pk)
+    if dev.type != "cuda":
+        raise ValueError(f"unpack_p1_idx takes cuda or cpu tensors, not {dev}")
+    from ._build import load
+
+    lib = load()
+    L, W = p1pk.shape
+    p1 = torch.empty((L, W * 2 // 3), dtype=torch.uint16, device=dev)
+    if L == 0:
+        return p1
+    with torch.cuda.device(dev):
+        err = lib.unpack_p1_idx_launch(
+            p1pk.data_ptr(), _squash_on(dev).data_ptr(), p1.data_ptr(),
+            L * W // 12, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"unpack_p1_idx kernel launch failed: cudaError {err} "
+            f"({lib.kernel_error_string(err).decode()})"
         )
-    if p1u16.dim() != 2:
-        raise ValueError(f"p1u16 must be [L, B], got {tuple(p1u16.shape)}")
-    L, Bp = p1u16.shape
+    unpack_p1_idx.launches += 1
+    return p1
+
+
+unpack_p1_idx.launches = 0
+
+
+def _check_problem(p1, bitw, lens, index=False):
+    """The wrapper's contract: the compact lane problem, contiguous, on one
+    device, with B a multiple of 32 and at most MAX_B; p1 as uint16 p1
+    [L, B], or with index=True as uint8 packed indices [L, 3 * B / 2]."""
+    want = torch.uint8 if index else torch.uint16
+    if (p1.dtype, bitw.dtype, lens.dtype) != (want, torch.int32, torch.int32):
+        raise TypeError(
+            f"lane problem must be ({want} p1, int32 bit words, int32 lens), "
+            f"got {p1.dtype}, {bitw.dtype}, {lens.dtype}"
+        )
+    if p1.dim() != 2:
+        raise ValueError(f"p1 must be a 2-d array of rows, got "
+                         f"{tuple(p1.shape)}")
+    L, W = p1.shape
+    if index and W % 3:
+        raise ValueError(f"packed index rows of {W} bytes are not 3 * B / 2")
+    Bp = lane_bins(p1)
     if Bp % 32 or Bp > MAX_B:
         raise ValueError(f"B={Bp} must be a multiple of 32 and <= {MAX_B}")
     if tuple(bitw.shape) != (L, Bp // 32) or tuple(lens.shape) != (L,):
         raise ValueError(
-            f"shapes {tuple(p1u16.shape)}, {tuple(bitw.shape)}, "
-            f"{tuple(lens.shape)} are not [L, B], [L, B/32], [L]"
+            f"shapes {tuple(p1.shape)}, {tuple(bitw.shape)}, "
+            f"{tuple(lens.shape)} are not [L, {'3B/2' if index else 'B'}], "
+            f"[L, B/32], [L]"
         )
-    if not (p1u16.is_contiguous() and bitw.is_contiguous()
+    if not (p1.is_contiguous() and bitw.is_contiguous()
             and lens.is_contiguous()):
         raise ValueError("lane problem tensors must be contiguous")
-    if not p1u16.device == bitw.device == lens.device:
+    if not p1.device == bitw.device == lens.device:
         raise ValueError("lane problem tensors must share one device")
 
 
@@ -372,44 +515,76 @@ def lane_encode_streams(p1u16, bitw, lens, M):
     cannot build or launch), on the current stream without synchronising.
     CPU tensors run lane_encode_streams_plain.
     lane_encode_streams.launches counts kernel launches."""
-    _check_problem(p1u16, bitw, lens)
+    return _streams(lane_encode_streams, p1u16, bitw, lens, M)
+
+
+lane_encode_streams.launches = 0
+
+
+def lane_encode_streams_idx_plain(p1pk, bitw, lens, M):
+    """Plain torch version of lane_encode_streams_idx: unpack_p1_idx_plain,
+    then lane_encode_streams_plain."""
+    return lane_encode_streams_plain(unpack_p1_idx_plain(p1pk), bitw, lens, M)
+
+
+def lane_encode_streams_idx(p1pk, bitw, lens, M):
+    """lane_encode_streams on the index form (the counterpart of the JAX
+    package's _lane_pipeline_idx_jit): p1pk uint8 [L, 3 * B / 2] holds two
+    12-bit squash-table indices in three bytes (pack_p1_idx), and the
+    kernel takes each bin's p1 from the table.  Same outputs and overflow
+    rule as lane_encode_streams.  CPU tensors run
+    lane_encode_streams_idx_plain.  lane_encode_streams_idx.launches counts
+    kernel launches."""
+    return _streams(lane_encode_streams_idx, p1pk, bitw, lens, M, index=True)
+
+
+lane_encode_streams_idx.launches = 0
+
+
+def _streams(wrapper, p1, bitw, lens, M, index=False):
+    """The body of both fused-kernel wrappers; `wrapper` carries the launch
+    count."""
+    name = wrapper.__name__
+    _check_problem(p1, bitw, lens, index)
     if M <= 0 or M % 8:
         raise ValueError(f"M={M} must be a positive multiple of 8 (the "
                          "kernel stores a lane's bytes in 8-byte pieces)")
-    dev = p1u16.device
+    dev = p1.device
     if dev.type == "cpu":
-        return lane_encode_streams_plain(p1u16, bitw, lens, M)
+        plain = (lane_encode_streams_idx_plain if index
+                 else lane_encode_streams_plain)
+        return plain(p1, bitw, lens, M)
     if dev.type != "cuda":
-        raise ValueError(
-            f"lane_encode_streams takes cuda or cpu tensors, not {dev}")
-    if p1u16.data_ptr() % 16:
-        raise ValueError("p1u16 must start on a 16-byte boundary (the kernel "
-                         "copies it in 16-byte pieces)")
+        raise ValueError(f"{name} takes cuda or cpu tensors, not {dev}")
+    if p1.data_ptr() % 16:
+        raise ValueError(f"{name}: p1 must start on a 16-byte boundary (the "
+                         "kernel copies it in 16-byte pieces)")
     from ._build import load
 
     lib = load()
-    L, Bp = p1u16.shape
+    L = p1.shape[0]
+    Bp = lane_bins(p1)
     out = torch.empty((L, M), dtype=torch.uint8, device=dev)
     nbytes = torch.empty(L, dtype=torch.int32, device=dev)
     total = torch.empty_like(nbytes)
     if L == 0:
         return out, nbytes, total
+    args = (bitw.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            nbytes.data_ptr(), total.data_ptr(), L, Bp, M,
+            torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        err = lib.lane_encode_streams_launch(
-            p1u16.data_ptr(), bitw.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), nbytes.data_ptr(), total.data_ptr(),
-            L, Bp, M, torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if index:
+            err = lib.lane_encode_streams_idx_launch(
+                p1.data_ptr(), _squash_on(dev).data_ptr(), *args)
+        else:
+            err = lib.lane_encode_streams_launch(p1.data_ptr(), *args)
     if err:
         raise RuntimeError(
-            f"lane_encode_streams kernel launch failed: cudaError {err} "
+            f"{name} kernel launch failed: cudaError {err} "
             f"({lib.kernel_error_string(err).decode()})"
         )
-    lane_encode_streams.launches += 1
+    wrapper.launches += 1
     return out, nbytes, total
-
-
-lane_encode_streams.launches = 0
 
 
 def pack_compact(bitp1, lens, pad_lanes=LANES):
@@ -431,14 +606,16 @@ def pack_compact(bitp1, lens, pad_lanes=LANES):
     return p1u16, bitw, lens
 
 
-def from_numpy_problem(p1u16, bitw, lens, device):
+def from_numpy_problem(p1, bitw, lens, device):
     """Numpy compact lane problem (the shared packers' output) -> the
-    port's tensors on `device`."""
+    port's tensors on `device`; p1 stays in the index form where it is
+    uint8 packed indices and is taken as uint16 p1 otherwise."""
     dev = torch.device(device)
+    p1 = np.asarray(p1)
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        for a in (np.asarray(p1u16, np.uint16), np.asarray(bitw, np.int32),
-                  np.asarray(lens, np.int32))
+        for a in (p1 if index_form(p1) else p1.astype(np.uint16, copy=False),
+                  np.asarray(bitw, np.int32), np.asarray(lens, np.int32))
     )
 
 
@@ -536,28 +713,32 @@ def max_bytes(Bp, bits_per_byte=4):
     return -(-Bp // bits_per_byte // 8) * 8 + 8
 
 
-def lane_dispatch_compact(p1u16, bitw, lens, device=None, bits_per_byte=4):
+def lane_dispatch_compact(p1, bitw, lens, device=None, bits_per_byte=4):
     """Dispatch phase of lane_streams_device_compact: upload every group of
-    GROUP_ROWS lane rows and code it with one lane_encode_streams launch,
-    on the current stream of `device`, without a host sync, so callers
-    overlap host work (extraction and packing of the next file, the next
-    shard of a mesh) with device work, then drain with lane_collect.
+    GROUP_ROWS lane rows and code it with one fused launch, on the current
+    stream of `device`, without a host sync, so callers overlap host work
+    (extraction and packing of the next file, the next shard of a mesh)
+    with device work, then drain with lane_collect.
 
-    Returns one pending handle a group: (rows, lens, out, nbytes, total,
-    the group's device inputs).  bits_per_byte sets the byte bound a lane
+    p1 is either upload form (see the module docstring): uint8 packed
+    indices [L, 3 * Bp / 2], which lane_encode_streams_idx codes, or uint16
+    p1 [L, Bp], which lane_encode_streams codes; the packer (pack_lanes)
+    chose it by the squash-image rule.  Returns one pending handle a group:
+    (rows, lens, out, nbytes, total, the group's device inputs), the inputs
+    in the form uploaded.  bits_per_byte sets the byte bound a lane
     (max_bytes); a group with a lane past it is coded again by lane_collect
     from the inputs kept in the handle."""
     dev = resolve_device(device)
-    L, Bp = p1u16.shape
+    L, Bp = p1.shape[0], lane_bins(p1)
     if Bp > MAX_B:
         raise ValueError(f"B={Bp} > {MAX_B} overflows 16-bit carry counts")
     M = max_bytes(Bp, bits_per_byte)
+    code = lane_encode_streams_idx if index_form(p1) else lane_encode_streams
     pending = []
     for lo in range(0, L, GROUP_ROWS):
         hi = min(lo + GROUP_ROWS, L)
-        prob = tuple(_upload(a[lo:hi], dev) for a in (p1u16, bitw, lens))
-        pending.append((hi - lo, lens[lo:hi],
-                        *lane_encode_streams(*prob, M), prob))
+        prob = tuple(_upload(a[lo:hi], dev) for a in (p1, bitw, lens))
+        pending.append((hi - lo, lens[lo:hi], *code(*prob, M), prob))
     return pending
 
 
@@ -590,13 +771,16 @@ def lane_collect(pending):
     (read_group, cut_streams).
 
     lane_collect.overflows counts groups in which a lane emitted more than
-    the byte bound: such a group is coded again with lane_encode and
-    finalized exactly on the host (finalize_lanes)."""
+    the byte bound: such a group is coded again with lane_encode (an
+    index-form group's p1 first unpacked on its device by unpack_p1_idx)
+    and finalized exactly on the host (finalize_lanes)."""
     streams = []
     for n, glens, out, nbytes, total, prob in pending:
         got = read_group(n, out, nbytes, total)
         if got is None:
             lane_collect.overflows += 1
+            if index_form(prob[0]):
+                prob = (unpack_p1_idx(prob[0]), *prob[1:])
             tok, car, ftok, fcar = (t[:n].cpu().numpy()
                                     for t in lane_encode(*prob))
             streams.extend(finalize_lanes(tok, car, ftok, fcar, glens))
@@ -608,12 +792,12 @@ def lane_collect(pending):
 lane_collect.overflows = 0
 
 
-def lane_streams_device_compact(p1u16, bitw, lens, device=None,
+def lane_streams_device_compact(p1, bitw, lens, device=None,
                                 bits_per_byte=4):
-    """The fused kernel on pre-packed compact arrays (see split_lanes_recs)
-    -> list of per-lane stream bytes."""
+    """The fused kernel on pre-packed compact arrays in either upload form
+    (see pack_lanes) -> list of per-lane stream bytes."""
     return lane_collect(
-        lane_dispatch_compact(p1u16, bitw, lens, device, bits_per_byte)
+        lane_dispatch_compact(p1, bitw, lens, device, bits_per_byte)
     )
 
 
@@ -708,13 +892,28 @@ def split_lanes_recs(traces, B):
 
 
 def pack_lanes(traces, B):
-    """Traces -> compact lane problem (p1u16, bitw, lens, spans): native
-    traces through split_lanes_recs, Python-extracted ones through
-    split_lanes + pack_compact (no lane padding)."""
+    """Traces -> compact lane problem (p1, bitw, lens, spans), p1 in the
+    index form (uint8 packed squash indices) where every valid bin's p1
+    lies in the squash table's image and in the u16 form otherwise, the
+    rule of the JAX package's lane_dispatch_compact.  Native traces go
+    through the one-pass native packer (host/native.lane_pack; equal to
+    split_lanes_recs and pack_p1_idx, its plain version), Python-extracted
+    ones through split_lanes + pack_compact (no lane padding) and
+    pack_p1_idx."""
+    Bp = -(-max(B, 1) // CHUNK) * CHUNK
     if all(hasattr(t, "recs32") for t in traces):
-        return split_lanes_recs(traces, B)
+        return native.lane_pack(traces, B, Bp)
     bitp1, lens, spans = split_lanes(traces, B)
-    return (*pack_compact(bitp1, lens, pad_lanes=1), spans)
+    p1u16, bitw, lens = pack_compact(bitp1, lens, pad_lanes=1)
+    return choose_form(p1u16, lens), bitw, lens, spans
+
+
+def choose_form(p1u16, lens):
+    """The squash-image rule on a u16 lane problem: its index form
+    (pack_p1_idx) where every valid bin's p1 lies in the squash table's
+    image, else p1u16 itself."""
+    p1pk, ok = pack_p1_idx(p1u16, lens)
+    return p1pk if ok else p1u16
 
 
 def encode_traces_lanes(traces, B, device=None, encode_fn=None):
@@ -724,17 +923,18 @@ def encode_traces_lanes(traces, B, device=None, encode_fn=None):
 
     encode_fn overrides the coder (a mesh-sharded one, see
     parallel/pipeline._mesh_lane_encoder): it takes the compact lane
-    problem (p1u16, bitw, lens) as numpy arrays and returns every lane's
-    stream bytes, as lane_streams_device_compact does on one device.  It
-    names its own devices, so it is not given together with `device`."""
+    problem (p1, bitw, lens) as numpy arrays, p1 in either upload form,
+    and returns every lane's stream bytes, as lane_streams_device_compact
+    does on one device.  It names its own devices, so it is not given
+    together with `device`."""
     if encode_fn is not None and device is not None:
         raise ValueError("give encode_fn or device, not both")
     dev = None if encode_fn is not None else resolve_device(device)
     if not traces:
         return []
-    p1u16, bitw, lens, spans = pack_lanes(traces, B)
+    p1, bitw, lens, spans = pack_lanes(traces, B)
     if encode_fn is not None:
-        streams = encode_fn(p1u16, bitw, lens)
+        streams = encode_fn(p1, bitw, lens)
     else:
-        streams = lane_streams_device_compact(p1u16, bitw, lens, dev)
+        streams = lane_streams_device_compact(p1, bitw, lens, dev)
     return [_make_envelope(streams[lo:hi]) for lo, hi in spans]

@@ -6,7 +6,9 @@ Counterpart of avrecode_tpu/parallel/pipeline.py:
            native extractor, or the Python reference parser),
   device — substream_bins > 0: the lane-parallel estimator-free coder
            with the finalize fused in (ops/lane_coder.py,
-           lane_encode_streams);
+           lane_encode_streams_idx on 12-bit squash indices, or
+           lane_encode_streams on uint16 p1 where a trace's p1 leave the
+           squash image);
            substream_bins = 0: the adaptive model and the range coder
            (ops/est_coder.py), one trace per thread.  The CUDA kernel runs
            on a card, the plain torch version on the CPU,
@@ -59,6 +61,7 @@ from ..ops.lane_coder import (
     GROUP_ROWS,
     auto_substream_bins,
     encode_traces_lanes,
+    index_form,
     lane_collect,
     lane_dispatch_compact,
     pack_lanes,
@@ -137,16 +140,17 @@ def _mesh_lane_encoder(mesh):
     the [L, B] lane axis cut into one contiguous shard a mesh entry, with
     no collective.
 
-    Every non-empty shard is uploaded to its device and coded there by
-    lane_encode_streams, each on a stream of its own and none waiting for
+    Every non-empty shard is uploaded to its device and coded there by the
+    fused kernel of its rows' upload form (lane_encode_streams_idx or
+    lane_encode_streams), each on a stream of its own and none waiting for
     the host; then all are read back in order."""
     mesh = check_mesh(mesh)
 
-    def encode(p1u16, bitw, lens):
+    def encode(p1, bitw, lens):
         work = [
             (dev, stream, lo, hi)
             for dev, stream, (lo, hi) in zip(
-                mesh, shard_streams(mesh), shard_ranges(p1u16.shape[0],
+                mesh, shard_streams(mesh), shard_ranges(p1.shape[0],
                                                         len(mesh)))
             if hi > lo
         ]
@@ -154,7 +158,7 @@ def _mesh_lane_encoder(mesh):
         for dev, stream, lo, hi in work:
             with on_shard(stream):
                 pending.append(lane_dispatch_compact(
-                    p1u16[lo:hi], bitw[lo:hi], lens[lo:hi], dev))
+                    p1[lo:hi], bitw[lo:hi], lens[lo:hi], dev))
         streams = []
         for (_, stream, _, _), handles in zip(work, pending):
             with on_shard(stream):
@@ -244,22 +248,28 @@ class _LaneBatcher:
     global row stream; full `big`-row dispatch groups launch as they fill,
     so many small files share dispatches instead of each paying for a
     tail group.  Row order is append order, so each file's lanes occupy
-    one contiguous global range."""
+    one contiguous global range.  A group joins rows of one upload form
+    only: a file whose rows come in the other form than the rows waiting
+    (pack_lanes gives a file the u16 form where its p1 leave the squash
+    image) first dispatches those as a group of their own."""
 
     def __init__(self, dispatch_fn, big):
         self.dispatch = dispatch_fn
         self.big = big
-        self.segs = []  # undispatched (p1u16, bitw, lens) row segments
+        self.segs = []  # undispatched (p1, bitw, lens) row segments
         self.acc = 0
         self.pending = []  # dispatched group handles, global row order
         self.rows = 0  # total rows appended
 
-    def add(self, p1u16, bitw, lens):
-        """Append one file's rows; returns (global_lo, global_hi)."""
+    def add(self, p1, bitw, lens):
+        """Append one file's rows (p1 in either upload form); returns
+        (global_lo, global_hi)."""
+        if self.segs and index_form(self.segs[0][0]) != index_form(p1):
+            self._flush(self.acc)
         lo = self.rows
-        self.rows += p1u16.shape[0]
-        self.segs.append([p1u16, bitw, lens])
-        self.acc += p1u16.shape[0]
+        self.rows += p1.shape[0]
+        self.segs.append([p1, bitw, lens])
+        self.acc += p1.shape[0]
         while self.acc >= self.big:
             self._flush(self.big)
         return lo, self.rows
@@ -286,8 +296,7 @@ class _LaneBatcher:
                 np.concatenate(parts[2]))
 
     def _flush(self, g):
-        p1u16, bitw, lens = self._take(g)
-        self.pending.extend(self.dispatch(p1u16, bitw, lens))
+        self.pending.extend(self.dispatch(*self._take(g)))
 
     def finish(self):
         """Dispatch the remainder, then collect -> global stream list."""
@@ -327,8 +336,8 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
     # extract on the host CPU
     order = sorted(range(len(datas)), key=lambda i: -len(datas[i]))
 
-    def dispatch(p1u16, bitw, lens):
-        return lane_dispatch_compact(p1u16, bitw, lens, dev)
+    def dispatch(p1, bitw, lens):
+        return lane_dispatch_compact(p1, bitw, lens, dev)
 
     metas_by_idx = [None] * len(datas)
     batcher = _LaneBatcher(dispatch, GROUP_ROWS)
@@ -346,8 +355,8 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
             sps, pps, blocks, traces, _ = cur.result()
             rows = spans = None
             if traces:
-                p1u16, bitw, lens, spans = pack_lanes(traces, substream_bins)
-                rows = batcher.add(p1u16, bitw, lens)
+                p1, bitw, lens, spans = pack_lanes(traces, substream_bins)
+                rows = batcher.add(p1, bitw, lens)
                 n_bins += sum(len(t) for t in traces)
             metas_by_idx[idx] = (sps, pps, blocks, traces, spans, rows)
     # drain all device work

@@ -4,7 +4,7 @@ machine with the CUDA toolkit (no card needed, but the build needs nvcc).
 
     python3 chip_sass.py [NAME=path/to/source.cu[,-DFLAG...] ...] [--dump DIR]
 
-Every source (with no arguments the four sources of
+Every source (with no arguments the sources of
 avrecode_tpu_torch/csrc) is built with the package's nvcc flags, and
 `cuobjdump -sass` of the library is split into kernels and basic blocks (a
 block starts at a label and ends after a branch).  For each kernel it
@@ -164,7 +164,7 @@ def main(argv):
     procs = {}
     for name, (src, flags) in sources.items():
         out = os.path.join(OUT_DIR, name + ".so")
-        cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-o", out, src]
+        cmd = _build.nvcc_command(out, [src], flags)
         procs[name] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for name, (out, proc) in procs.items():

@@ -21,19 +21,32 @@ Phases; any failure raises and the script exits non-zero:
              257 and 4096, runs of 0xFF longer than the kernel's staging
              ring with one carry through them into position 0, lens of 0,
              1 and B, 1, 15, 17 and 1,000 lanes, bits_per_byte of 1, 4 and
-             1000.  Then the overflow path: dense streams past the bound
-             are coded again by lane_encode and finalized on the host
+             1000.  Then the index form: lane_encode_streams_idx vs
+             lane_encode_streams_idx_plain and vs lane_encode_streams on
+             the same lanes, on those cases with p1 on the squash table's
+             image (every index 0-4095 among the valid bins of the larger
+             ones, padding index 0), and one lane of 32,768 bins against
+             the host encoder; unpack_p1_idx vs its plain version on each.
+             A valid p1 = 0 takes the u16 form.  Then the overflow path in
+             both forms: dense streams past the bound are coded again by
+             lane_encode (an index-form group unpacked by unpack_p1_idx
+             first) and finalized on the host
   4 main     device_compress on the pinned clips (a CAVLC one among them)
              at gop scope and B in (4096, 16384): byte-identical to
              codec.compress and roundtripping through both decoders;
              device_compress_corpus equal to the per-file results; every
-             call launched lane_encode_streams and none lane_encode
+             call launched lane_encode_streams_idx (the index form, which
+             native traces take) and no other lane kernel; then
+             lane_streams_device_compact on p1 off the squash image takes
+             the u16 form, lane_encode_streams
   5 full     one full dispatch group, [8192, 16384] lanes tiled from the
-             clips' real (bit, p1) traces: lane_encode vs plain (equal
-             tokens) and lane_encode_streams vs plain (equal streams), all
-             timed with CUDA events, each kernel's time beside its bounds;
+             clips' real (bit, p1) traces, in both upload forms (the index
+             form from the native packer): lane_encode vs plain (equal
+             tokens), lane_encode_streams and lane_encode_streams_idx vs
+             plain (equal streams), unpack_p1_idx vs plain, all timed with
+             CUDA events, each kernel's time beside its bounds;
              lane_streams_device_compact whole and stage by stage (upload,
-             kernel, read-back, slicing)
+             kernel, read-back, slicing) in both forms
   6 kernel   est_encode (CUDA kernel) vs est_encode_plain on the same card
              tensors, exact: random traces over all key classes, the
              skewed carry stress, invalid bins inside traces, 4,096 slots,
@@ -73,7 +86,7 @@ Phases; any failure raises and the script exits non-zero:
              roundtripping; the est path with n = 4 on two clips equal to
              native.compress; sharded decode_streams_lanes equal to the
              unsharded call; every non-empty shard launched its kernel
-             once.  Then phase 5's [8192, 16384] group through the mesh
+             once (lane_encode_streams_idx on the lane path).  Then phase 5's [8192, 16384] group through the mesh
              encoder with n = 4: streams equal to the single launch's, the
              whole call on the host clock and the kernels by CUDA events
              beside the unsharded call's, and dispatch and drain of both.
@@ -154,6 +167,12 @@ INT_OPS_PER_S = 67e12 / 2
 #   next test 1: 7
 LANE_OPS = (14, 8)
 STREAM_OPS = (10, 10)
+# - lane_encode_streams_idx: the fused kernel's, and a bin's 12-bit field
+#   taken out (shift and mask) and looked up in the table: 12 a bin
+# - unpack_p1_idx: that field and lookup, 2 a bin (the packing of two p1 into
+#   a word and the stores are data movement, counted as bytes)
+STREAM_IDX_OPS = (12, 10)
+UNPACK_OPS = 2
 DECODE_OPS = (10, 7)
 EST_OPS_PER_BIN = 150  # of one est_encode bin
 # dependent instructions of one lane_decode bin (shift, multiply, compare
@@ -201,7 +220,7 @@ def card_line():
     return res.stdout.strip()
 
 
-def ffrun_lanes(L, B, rng):
+def ffrun_lanes(L, B, rng, grid=None):
     """(p1 [L, B], bits [L, B]) whose streams hold the longest carry walks
     a range coder can make.  Every lane keeps the point 0.5 strictly inside
     its interval for as long as it can, by choosing each bin's p1 and bit
@@ -212,19 +231,32 @@ def ffrun_lanes(L, B, rng):
     carry that ripples through the whole run, across everything a kernel
     has stored already, into position 0; the bins after it are random.  A
     lane still on the point when its bins end gets that carry from its
-    flush."""
+    flush.  grid (sorted p1 values): every p1 taken from it, each cut the
+    grid's nearest beside the point (the squash table's image, whose steps
+    are at most 64 apart)."""
     none = 1 << 40
+
+    def up(x):  # the least grid value >= x, else the largest
+        return grid[np.minimum(np.searchsorted(grid, x), len(grid) - 1)]
+
+    def down(x):  # the largest grid value <= x, else the least
+        return grid[np.maximum(np.searchsorted(grid, x, "right") - 1, 0)]
+
     low = np.zeros(L, np.int64)
     rng_ = np.full(L, 0xFFFFFFFF, np.int64)
     point = np.full(L, 1 << 31, np.int64)  # in the coder's shifted coordinates
     held = np.ones(L, bool)  # the lane still holds the point
     cross_at = np.arange(L) * B // max(L - 1, 1)
     p1 = rng.integers(1, 1 << 16, (L, B)).astype(np.int64)
+    if grid is not None:
+        p1 = up(p1)
     bits = rng.random((L, B)) * 65536 < p1
     for i in range(B):
         at = ((point - low) << 16) // rng_  # the point, in p1's units
         cands = [np.full(L, 0x8000, np.int64), np.clip(at + 2, 1, 0xFFFF),
                  np.clip(at - 2, 1, 0xFFFF)]
+        if grid is not None:
+            cands = [up(cands[0]), up(cands[1]), down(cands[2])]
         # holding: the narrowest side that still holds the point, but no
         # narrower than 1/512 of the interval
         best = np.full(L, none, np.int64)
@@ -296,6 +328,63 @@ def lanes(kind, L, B, seed):
         lens[:2] = [0, B][:L]
     bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
     return p1.astype(np.uint16), bitw, lens
+
+
+def squash_lanes(kind, L, B, seed, cut=None):
+    """lanes(kind, L, B, seed) in the index form: (packed uint8
+    [L, 3 * B / 2], int32 bit words, int32 lens), every valid bin's p1 on
+    the squash table's image and given by its index, padding index 0.
+    "random": uniform indices and, where the lanes hold 4,096 valid bins or
+    more, every index among them (some p1 values have several); "ffrun"
+    builds its runs on the squash grid; every other kind's p1 is moved to
+    the nearest squash value, its bits kept.  cut: lens cut to it.  The
+    plain form of the problem is unpack_p1_idx's p1 with these bit words
+    and lens."""
+    sq = tlc._squash_tables()[0]
+    grid = np.unique(sq)
+    if kind == "ffrun":
+        rng = np.random.default_rng(seed)
+        p1, bits = ffrun_lanes(L, B, rng, grid)
+        bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+        lens = np.full(L, B, np.int32)
+    else:
+        p1, bitw, lens = lanes(kind, L, B, seed)
+        near = np.clip(np.searchsorted(grid, p1), 1, len(grid) - 1)
+        lo, hi = grid[near - 1], grid[near]
+        p1 = np.where(p1.astype(np.int64) - lo <= hi - p1, lo, hi)
+    idx = tlc._squash_tables()[1][p1].astype(np.int64)
+    if cut is not None:
+        lens = np.minimum(lens, cut)
+    live = np.arange(B)[None, :] < lens[:, None]
+    if kind == "random":
+        rng = np.random.default_rng(seed + 1)
+        idx = rng.integers(0, 4096, (L, B))
+        pos = np.flatnonzero(live)
+        if len(pos) >= 4096:
+            idx.flat[pos[:4096]] = rng.permutation(4096)
+        bits = rng.random((L, B)) * 65536 < sq[idx]
+        bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    return pack_indices(np.where(live, idx, 0)), bitw, lens
+
+
+def pack_indices(idx):
+    """Squash indices [L, B] -> packed uint8 [L, 3 * B / 2], two in three
+    bytes, the even bin's in the low 12 bits (pack_p1_idx's layout)."""
+    L, B = idx.shape
+    pk = np.empty((L, B // 2, 3), np.uint8)
+    ev, od = idx[:, 0::2], idx[:, 1::2]
+    pk[:, :, 0] = ev & 0xFF
+    pk[:, :, 1] = (ev >> 8) | ((od & 0xF) << 4)
+    pk[:, :, 2] = od >> 4
+    return pk.reshape(L, -1)
+
+
+def packed_indices(pk):
+    """pack_indices' inverse: packed uint8 [L, 3 * B / 2] -> indices [L, B]."""
+    b = pk.astype(np.int64).reshape(pk.shape[0], -1, 3)
+    ev = b[:, :, 0] | ((b[:, :, 1] & 0xF) << 8)
+    od = (b[:, :, 1] >> 4) | (b[:, :, 2] << 4)
+    return np.stack([ev, od], axis=-1).reshape(pk.shape[0], -1)
 
 
 def max_abs_diff(xs, ys):
@@ -407,13 +496,18 @@ def phase_streams_vs_plain(dev, cases):
     return worst
 
 
-def lone_lane_vs_host(dev, n, seed):
-    """One random lane of n bins through lane_encode_streams, held to the
+def lone_lane_vs_host(dev, n, seed, index=False):
+    """One random lane of n bins through lane_encode_streams (index: its p1
+    uniform squash indices, through lane_encode_streams_idx), held to the
     host RangeEncoder (the plain loop over n bin steps is slow); returns
     the largest absolute difference of the bytes and the length (must be
     0)."""
     rng = np.random.default_rng(seed)
-    p1 = rng.integers(1, 1 << 16, (1, n)).astype(np.uint16)
+    if index:
+        idx = rng.integers(0, 4096, (1, n))
+        p1 = tlc._squash_tables()[0][idx].astype(np.uint16)
+    else:
+        p1 = rng.integers(1, 1 << 16, (1, n)).astype(np.uint16)
     bits = rng.random((1, n)) * 65536 < p1
     bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
     enc = RangeEncoder()
@@ -421,41 +515,162 @@ def lone_lane_vs_host(dev, n, seed):
         enc.put(int(b), p)
     want = np.frombuffer(bytes(enc.finish()), np.uint8)
     M = tlc.max_bytes(n, 1)
-    prob = tlc.from_numpy_problem(p1, bitw, np.array([n], np.int32), dev)
-    out, nb, tot = (t.cpu().numpy() for t in tlc.lane_encode_streams(*prob, M))
+    prob = tlc.from_numpy_problem(pack_indices(idx) if index else p1, bitw,
+                                  np.array([n], np.int32), dev)
+    code = tlc.lane_encode_streams_idx if index else tlc.lane_encode_streams
+    out, nb, tot = (t.cpu().numpy() for t in code(*prob, M))
     err = abs(int(nb[0]) - len(want))
     if not err:
         err = int(np.abs(out[0, :nb[0]].astype(np.int64) - want).max(initial=0))
-    log(f"streams kernel vs host encoder, one lane of {n} bins: "
-        f"max_abs_err={err}, {len(want)} bytes, total {int(tot[0])}")
+    log(f"streams kernel{' (index form)' if index else ''} vs host encoder, "
+        f"one lane of {n} bins: max_abs_err={err}, {len(want)} bytes, "
+        f"total {int(tot[0])}")
     if err:
         raise AssertionError(f"fused kernel != host encoder on one lane of "
                              f"{n} bins")
     return err
 
 
-def phase_overflow(dev, L, B):
-    """Dense streams past the byte bound: the group is coded again with
-    lane_encode and finalized exactly on the host.  Returns lane_encode's
-    launches in that call."""
-    p1u16, bitw, lens = lanes("random", L, B, seed=7)
-    before = tlc.lane_collect.overflows
-    fused, unfused = tlc.lane_encode_streams.launches, tlc.lane_encode.launches
-    got = tlc.lane_streams_device_compact(p1u16, bitw, lens, dev,
-                                          bits_per_byte=1000)
+def phase_streams_idx_vs_plain(dev, cases):
+    """lane_encode_streams_idx vs lane_encode_streams_idx_plain on the same
+    card tensors, and vs lane_encode_streams on the same lanes in the u16
+    form; the cases' p1 on the squash image (squash_lanes: every index where
+    the lanes hold 4,096 valid bins, padding index 0).  Then unpack_p1_idx
+    vs unpack_p1_idx_plain on each problem.  Returns the largest absolute
+    differences (streams, unpack; both must be 0)."""
+    worst = worst_unpack = 0
+    made = None
+    for kind, L, B, cut, bpb in cases:
+        if made is None or made[0] != (kind, L, B, cut):
+            pk, bitw, lens = squash_lanes(kind, L, B, seed=L + B, cut=cut)
+            prob = tlc.from_numpy_problem(pk, bitw, lens, dev)
+            p1 = tlc.unpack_p1_idx(prob[0])
+            torch.cuda.synchronize(dev)
+            u_err = max_abs_diff([p1], [tlc.unpack_p1_idx_plain(prob[0])])
+            worst_unpack = max(worst_unpack, u_err)
+            live = np.arange(B)[None, :] < lens[:, None]
+            n_idx = len(np.unique(packed_indices(pk)[live]))
+            log(f"unpack_p1_idx vs plain {kind} L={L} B={B}: "
+                f"max_abs_err={u_err}, {n_idx} distinct indices in the "
+                f"valid bins")
+            if u_err:
+                raise AssertionError(f"unpack kernel != plain for {kind} "
+                                     f"L={L} B={B}")
+            made = ((kind, L, B, cut), prob, p1)
+        _, prob, p1 = made
+        M = tlc.max_bytes(B, bpb)
+        got = tlc.lane_encode_streams_idx(*prob, M)
+        u16 = tlc.lane_encode_streams(p1, prob[1], prob[2], M)
+        torch.cuda.synchronize(dev)
+        ref = tlc.lane_encode_streams_idx_plain(*prob, M)
+        err = max(streams_diff(got, ref, M), streams_diff(got, u16, M))
+        worst = max(worst, err)
+        tot = got[2].cpu().numpy()
+        log(f"streams index kernel vs plain and vs the u16 kernel {kind} "
+            f"L={L} B={B} lens<={cut or B} bits_per_byte={bpb} (M={M}): "
+            f"max_abs_err={err}, lanes inside the bound "
+            f"{int((tot <= M).sum())}/{L}, longest {int(tot.max())}")
+        if err:
+            raise AssertionError(f"index kernel != plain for {kind} L={L} "
+                                 f"B={B} bits_per_byte={bpb}")
+    return worst, worst_unpack
+
+
+def phase_zero_p1(dev):
+    """A valid bin with p1 = 0 takes the u16 form: the squash-image rule
+    (choose_form) refuses the index form, lane_streams_device_compact
+    launches lane_encode_streams and not the index kernel, and the lane
+    codes p1 = 0 as the plain coder does.  Returns the u16 launches."""
+    pk, bitw, lens = squash_lanes("random", 40, 512, seed=3)
+    p1 = tlc.unpack_p1_idx_plain(torch.from_numpy(pk)).numpy()
+    p1[np.arange(512)[None, :] >= lens[:, None]] = 0
+    p1[0, 10] = 0  # lens[0] is B
+    chosen = tlc.choose_form(p1, lens)
+    fused, idx = tlc.lane_encode_streams.launches, \
+        tlc.lane_encode_streams_idx.launches
+    got = tlc.lane_streams_device_compact(chosen, bitw, lens, dev)
     fused = tlc.lane_encode_streams.launches - fused
-    unfused = tlc.lane_encode.launches - unfused
-    prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
+    idx = tlc.lane_encode_streams_idx.launches - idx
+    prob = tlc.from_numpy_problem(p1, bitw, lens, dev)
     ref = tlc.finalize_lanes(*(t.cpu().numpy()
                                for t in tlc.lane_encode_plain(*prob)), lens)
-    log(f"overflow finalize: lane_collect.overflows="
-        f"{tlc.lane_collect.overflows} (was {before}), "
-        f"lane_encode_streams launches {fused}, lane_encode launches "
-        f"{unfused} (the fallback)")
-    if (tlc.lane_collect.overflows != before + 1 or got != ref
-            or (fused, unfused) != (1, 1)):
-        raise AssertionError("overflow-finalize path did not match")
-    return unfused
+    log(f"a valid p1 = 0: form {chosen.dtype}, lane_encode_streams launches "
+        f"{fused}, lane_encode_streams_idx launches {idx}, streams equal to "
+        f"the plain coder's: {got == ref}")
+    if chosen.dtype != np.uint16 or (fused, idx) != (1, 0) or got != ref:
+        raise AssertionError("a valid p1 = 0 did not take the u16 form")
+    return fused
+
+
+def phase_overflow(dev, L, B):
+    """Dense streams past the byte bound, in both upload forms: the group
+    is coded again with lane_encode (an index-form group's p1 unpacked on
+    the card first) and finalized exactly on the host.  Returns the
+    launches in those calls: {kernel name: count}."""
+    counts = {}
+    for index in (False, True):
+        if index:
+            p1, bitw, lens = squash_lanes("carry", L, B, seed=7)
+        else:
+            p1, bitw, lens = lanes("random", L, B, seed=7)
+        before = tlc.lane_collect.overflows
+        kernels = {"lane_encode_streams_idx" if index
+                   else "lane_encode_streams": None, "lane_encode": None}
+        if index:
+            kernels["unpack_p1_idx"] = None
+        for name in kernels:
+            kernels[name] = getattr(tlc, name).launches
+        got = tlc.lane_streams_device_compact(p1, bitw, lens, dev,
+                                              bits_per_byte=1000)
+        for name in kernels:
+            kernels[name] = getattr(tlc, name).launches - kernels[name]
+            counts[name] = counts.get(name, 0) + kernels[name]
+        prob = tlc.from_numpy_problem(p1, bitw, lens, dev)
+        if index:
+            prob = (tlc.unpack_p1_idx_plain(prob[0]), *prob[1:])
+        ref = tlc.finalize_lanes(*(t.cpu().numpy()
+                                   for t in tlc.lane_encode_plain(*prob)),
+                                 lens)
+        log(f"overflow finalize, {'index' if index else 'u16'} form: "
+            f"lane_collect.overflows={tlc.lane_collect.overflows} (was "
+            f"{before}), launches {kernels}")
+        if (tlc.lane_collect.overflows != before + 1 or got != ref
+                or set(kernels.values()) != {1}):
+            raise AssertionError("overflow-finalize path did not match")
+    return counts
+
+
+LANE_KERNELS = ("lane_encode", "lane_encode_streams", "lane_encode_streams_idx",
+                "unpack_p1_idx")
+
+
+def _zero_counts():
+    """Set the launch counts of the lane kernels' wrappers to 0."""
+    for name in LANE_KERNELS:
+        getattr(tlc, name).launches = 0
+
+
+def phase_off_image(dev):
+    """lane_streams_device_compact on random lanes, whose p1 leave the
+    squash image: the rule (choose_form) keeps the u16 form, which launches
+    lane_encode_streams, equal to the host finalize.  Returns its
+    launches."""
+    p1u16, bitw, lens = lanes("random", 1000, 4096, seed=8)
+    chosen = tlc.choose_form(p1u16, lens)
+    got = tlc.lane_streams_device_compact(chosen, bitw, lens, dev)
+    fused = tlc.lane_encode_streams.launches
+    prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
+    ref = tlc.finalize_lanes(*(t.cpu().numpy()
+                               for t in tlc.lane_encode(*prob)), lens)
+    log(f"p1 off the squash image: form {chosen.dtype}, lane_encode_streams "
+        f"launches {fused}, lane_encode_streams_idx launches "
+        f"{tlc.lane_encode_streams_idx.launches}, streams equal to the host "
+        f"finalize: {got == ref}")
+    if (chosen.dtype != np.uint16 or fused != 1 or got != ref
+            or tlc.lane_encode_streams_idx.launches):
+        raise AssertionError("p1 off the squash image did not take the u16 "
+                             "form")
+    return fused
 
 
 def assert_native_extractor(clip, data, scope, want_slots):
@@ -469,17 +684,22 @@ def assert_native_extractor(clip, data, scope, want_slots):
 
 
 def phase_main_path(dev, Bs, clips):
-    """The port's main path on real clips, held to the host codec."""
+    """The port's main path on real clips, held to the host codec.  Returns
+    (timings, launches of lane_encode_streams_idx by entry point)."""
     datas = [open(os.path.join(ROOT, "data", c), "rb").read() for c in clips]
     for clip, data in zip(clips, datas):
         assert_native_extractor(clip, data, "gop", want_slots=False)
     timings = []
+    launches = {"device_compress": 0, "device_compress_corpus": 0}
     for B in Bs:
         per_file = []
         for clip, data in zip(clips, datas):
             t0 = time.time()
+            before = tlc.lane_encode_streams_idx.launches
             out = device_compress(data, scope="gop", substream_bins=B,
                                   device=dev)
+            launches["device_compress"] += (
+                tlc.lane_encode_streams_idx.launches - before)
             dt = time.time() - t0
             if out != codec.compress(data, scope="gop", substream_bins=B):
                 raise AssertionError(f"{clip} B={B}: port != codec.compress")
@@ -493,8 +713,11 @@ def phase_main_path(dev, Bs, clips):
             per_file.append(out)
         stats = {}
         t0 = time.time()
+        before = tlc.lane_encode_streams_idx.launches
         outs = device_compress_corpus(datas, scope="gop", substream_bins=B,
                                       device=dev, stats=stats)
+        launches["device_compress_corpus"] += (
+            tlc.lane_encode_streams_idx.launches - before)
         dt = time.time() - t0
         if outs != per_file:
             raise AssertionError(f"B={B}: corpus != per-file containers")
@@ -503,7 +726,7 @@ def phase_main_path(dev, Bs, clips):
             f"{stats['bins']} bins, {stats['dispatches']} dispatches, "
             f"{dt:.3f} s = {len(outs) / dt:.2f} containers/s, "
             f"{stats['bins'] / dt:.4g} bins/s (host clock)")
-    return timings
+    return timings, launches
 
 
 def tiled_problem(clips, L, B):
@@ -521,6 +744,20 @@ def tiled_problem(clips, L, B):
     bitw = np.packbits(np.tile(bit, reps)[: L * B].reshape(L, B), axis=1,
                        bitorder="little").view(np.int32)
     return p1u16, bitw, np.full(L, B, np.int32)
+
+
+def tiled_trace(clips, L, B):
+    """One native trace of L * B records tiled from the clips' real
+    records, in the order in which tiled_problem tiles their (bit, p1): the
+    lane packers cut it into tiled_problem's [L, B] lanes."""
+    recs = []
+    for c in clips:
+        data = open(os.path.join(ROOT, "data", c), "rb").read()
+        recs += [t.recs.copy()
+                 for t in native.extract(data, "gop", want_slots=False)[3]]
+    r = np.concatenate(recs)
+    r = np.tile(r, -(-(L * B) // len(r)))[: L * B]
+    return native.NativeTrace(r, np.zeros(0, np.int32))
 
 
 def cuda_ms(fn, reps):
@@ -556,10 +793,10 @@ def bound_terms(n_bytes, n_ops):
 
 
 def lane_stage_split(dev, p1u16, bitw, lens, runs=3):
-    """lane_streams_device_compact on one group stage by stage, the device
-    idle between stages (a synchronize after each): ({stage: least ms over
-    the runs}, the streams)."""
-    M = tlc.max_bytes(p1u16.shape[1])
+    """lane_streams_device_compact on one group (p1 in either upload form)
+    stage by stage, the device idle between stages (a synchronize after
+    each): ({stage: least ms over the runs}, the streams)."""
+    M = tlc.max_bytes(tlc.lane_bins(p1u16))
     n = p1u16.shape[0]
     best = {}
 
@@ -572,10 +809,12 @@ def lane_stage_split(dev, p1u16, bitw, lens, runs=3):
         best[name] = min(ms, best.get(name, ms))
         return res
 
+    code = (tlc.lane_encode_streams_idx if tlc.index_form(p1u16)
+            else tlc.lane_encode_streams)
     for _ in range(runs):
         prob = timed("upload", lambda: tuple(
             tlc._upload(a, dev) for a in (p1u16, bitw, lens)))
-        got = timed("kernel", lambda: tlc.lane_encode_streams(*prob, M))
+        got = timed("kernel", lambda: code(*prob, M))
         back = timed("read-back", lambda: tlc.read_group(n, *got))
         streams = timed("slicing", lambda: tlc.cut_streams(*back))
     return best, streams
@@ -583,22 +822,55 @@ def lane_stage_split(dev, p1u16, bitw, lens, runs=3):
 
 def phase_full_dispatch(dev, clips, L, B, card):
     p1u16, bitw, lens = tiled_problem(clips, L, B)
+    # the index form of the same lanes, from the same records, through the
+    # main path's packer
+    trace = tiled_trace(clips, L, B)
+    t0 = time.perf_counter()
+    p1pk, bitw_i, lens_i, _ = tlc.pack_lanes([trace], B)
+    t_pack = (time.perf_counter() - t0) * 1e3
+    del trace
+    if (p1pk.dtype != np.uint8 or not np.array_equal(bitw_i, bitw)
+            or not np.array_equal(lens_i, lens)):
+        raise AssertionError("full dispatch: the native packer's index form "
+                             "differs from the tiled lanes")
+    del bitw_i, lens_i
     M = tlc.max_bytes(B)
-    e2e = []
-    for _ in range(3):  # the first call allocates the pinned buffers
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        streams = tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)
-        e2e.append((time.perf_counter() - t0) * 1e3)
+    e2e = {"u16": [], "index": []}
+    for form, p1 in (("u16", p1u16), ("index", p1pk)):
+        for _ in range(3):  # the first call allocates the pinned buffers
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            got_streams = tlc.lane_streams_device_compact(p1, bitw, lens, dev)
+            e2e[form].append((time.perf_counter() - t0) * 1e3)
+        if form == "u16":
+            streams = got_streams
+        elif got_streams != streams:
+            raise AssertionError("full dispatch: the index form's streams "
+                                 "differ from the u16 form's")
+    del got_streams
     prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
+    iprob = tlc.from_numpy_problem(p1pk, bitw, lens, dev)
+    unpacked = tlc.unpack_p1_idx(iprob[0])
+    un_plain = tlc.unpack_p1_idx_plain(iprob[0])
+    u_err = max_abs_diff([unpacked], [un_plain])
+    if u_err or not torch.equal(unpacked, prob[0]):
+        raise AssertionError("full dispatch: unpack_p1_idx != plain, or the "
+                             "unpacked p1 != the u16 form's")
+    del unpacked, un_plain
+    u1 = cuda_ms(lambda: tlc.unpack_p1_idx(iprob[0]), 5)
+    u_plain = cuda_ms(lambda: tlc.unpack_p1_idx_plain(iprob[0]), 1)
+    u2 = cuda_ms(lambda: tlc.unpack_p1_idx(iprob[0]), 5)
     tlc.lane_encode(*prob)  # warm-up
     tlc.lane_encode_streams(*prob, M)
+    tlc.lane_encode_streams_idx(*iprob, M)
     k1 = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
     s1 = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
+    i1 = cuda_ms(lambda: tlc.lane_encode_streams_idx(*iprob, M), 5)
     ref = []
     plain = cuda_ms(lambda: ref.append(tlc.lane_encode_plain(*prob)), 1)
     raw = ref.pop()
     plain_fin = cuda_ms(lambda: ref.append(tlc.finalize_device(*raw, M)), 1)
+    i2 = cuda_ms(lambda: tlc.lane_encode_streams_idx(*iprob, M), 5)
     s2 = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
     k2 = cuda_ms(lambda: tlc.lane_encode(*prob), 5)
     got = tlc.lane_encode(*prob)
@@ -614,15 +886,25 @@ def phase_full_dispatch(dev, clips, L, B, card):
                                                     ref_tot))
     if s_err or bool(overflow) or streams != plain_streams:
         raise AssertionError("full dispatch: fused kernel streams != plain")
+    # the index form's plain version is unpack_p1_idx_plain, then the u16
+    # form's plain version: its p1 equal prob[0] (checked above), so its
+    # streams are the u16 plain streams
+    fused_i = tlc.lane_encode_streams_idx(*iprob, M)
+    i_err = streams_diff(fused_i, (ref_out, ref_nb, ref_tot), M)
+    if i_err:
+        raise AssertionError("full dispatch: index kernel streams != plain")
     nbytes = sum(map(len, streams))
     emitted = int(ref_tot.sum())
-    del ref_out, fused
+    del ref_out, fused, fused_i
     log(f"full dispatch [{L}, {B}]: lane_encode = plain (tokens), "
-        f"lane_encode_streams = plain (streams), {L * B} bins -> {nbytes} "
-        f"bytes; lane_streams_device_compact on the host clock, three calls "
-        f"in a row (the first allocates the pinned buffers): "
-        f"{', '.join(f'{t:.1f}' for t in e2e)} ms = "
-        f"{L * B / (min(e2e) / 1e3):.4g} bins/s end to end")
+        f"lane_encode_streams = plain (streams), lane_encode_streams_idx = "
+        f"plain (streams), unpack_p1_idx = plain and = the u16 form's p1, "
+        f"{L * B} bins -> {nbytes} bytes; native packer, index form, "
+        f"{t_pack:.1f} ms; lane_streams_device_compact on the host clock, "
+        f"three calls in a row (the first allocates the pinned buffers): "
+        + "; ".join(f"{form} form {', '.join(f'{t:.1f}' for t in ts)} ms = "
+                    f"{L * B / (min(ts) / 1e3):.4g} bins/s"
+                    for form, ts in e2e.items()))
     ms = (k1 + k2) / 2
     # p1 and bit words in, tok and car out, lens/ftok/fcar a lane
     n_bytes = L * B * 2 + L * B // 8 + 2 * L * B * 4 + 3 * L * 4
@@ -636,33 +918,57 @@ def phase_full_dispatch(dev, clips, L, B, card):
         f"{L * B / (ms / 1e3):.4g} bins/s; bound {bound:.3f} ms by {by} "
         f"({bound_terms(n_bytes, n_ops)}), the kernel is at {bound / ms:.1%} "
         f"of it")
-    s_ms = (s1 + s2) / 2
-    # p1, bit words and lens in; the bytes this data emits, nbytes and total
-    # out
-    s_bytes = L * B * 2 + L * B // 8 + L * 4 + emitted + 2 * L * 4
-    s_ops = lane_ops(STREAM_OPS, n_bins, emitted)
-    s_bound, s_by = bound_ms(s_bytes, s_ops)
     chain = B * DECODE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
-    log(f"full dispatch timing [{L}, {B}] on {card}: lane_encode_streams "
-        f"{s1:.3f} / {s2:.3f} ms (mean {s_ms:.3f} ms, "
-        f"{L * B / (s_ms / 1e3):.4g} bins/s), plain {plain + plain_fin:.1f} "
-        f"ms (encode {plain:.1f} + finalize {plain_fin:.1f}); bound "
-        f"{s_bound:.3f} ms by {s_by} ({bound_terms(s_bytes, s_ops)}; "
-        f"{emitted} bytes emitted), the kernel is "
-        f"at {s_bound / s_ms:.1%} of it; a lane's chain floor ({B} bins x "
-        f"{DECODE_CHAIN_CYCLES} cycles) {chain:.3f} ms, the kernel is at "
-        f"{chain / s_ms:.1%} of that; peak device memory "
+    # p1 (or packed indices and the table), bit words and lens in; the bytes
+    # this data emits, nbytes and total out
+    rest = L * B // 8 + L * 4 + emitted + 2 * L * 4
+    forms = {}
+    for form, t1, t2, p1_bytes, ops, p_ms in (
+            ("u16", s1, s2, L * B * 2, STREAM_OPS, plain + plain_fin),
+            ("index", i1, i2, L * B * 3 // 2 + 4096 * 2, STREAM_IDX_OPS,
+             u_plain + plain + plain_fin)):
+        f_ms = (t1 + t2) / 2
+        f_bytes = p1_bytes + rest
+        f_ops = lane_ops(ops, n_bins, emitted)
+        f_bound, f_by = bound_ms(f_bytes, f_ops)
+        name = ("lane_encode_streams_idx" if form == "index"
+                else "lane_encode_streams")
+        log(f"full dispatch timing [{L}, {B}] on {card}: {name} "
+            f"{t1:.3f} / {t2:.3f} ms (mean {f_ms:.3f} ms, "
+            f"{L * B / (f_ms / 1e3):.4g} bins/s), plain {p_ms:.1f} ms "
+            + (f"(unpack {u_plain:.1f} + " if form == "index" else "(")
+            + f"encode {plain:.1f} + finalize {plain_fin:.1f}); bound "
+            f"{f_bound:.3f} ms by {f_by} ({bound_terms(f_bytes, f_ops)}; "
+            f"{emitted} bytes emitted), the kernel is at {f_bound / f_ms:.1%} "
+            f"of it; a lane's chain floor ({B} bins x "
+            f"{DECODE_CHAIN_CYCLES} cycles) {chain:.3f} ms, the kernel is at "
+            f"{chain / f_ms:.1%} of that")
+        forms[form] = (f_ms, p_ms, f_bound, f_by)
+    u_ms = (u1 + u2) / 2
+    # packed indices and the table in, p1 out; a field's shift and mask and
+    # its lookup a bin
+    u_bytes = L * B * 3 // 2 + 4096 * 2 + L * B * 2
+    u_bound, u_by = bound_ms(u_bytes, UNPACK_OPS * L * B)
+    log(f"full dispatch timing [{L}, {B}] on {card}: unpack_p1_idx {u1:.3f} "
+        f"/ {u2:.3f} ms (mean {u_ms:.3f} ms), plain {u_plain:.1f} ms; bound "
+        f"{u_bound:.3f} ms by {u_by} "
+        f"({bound_terms(u_bytes, UNPACK_OPS * L * B)}), the kernel is at "
+        f"{u_bound / u_ms:.1%} of it; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    split, staged = lane_stage_split(dev, p1u16, bitw, lens)
-    if staged != streams:
-        raise AssertionError("full dispatch: the staged streams differ")
-    log(f"full dispatch stages [{L}, {B}] on {card}, ms, least of 3, the "
-        f"device idle between stages: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-        + f", sum {sum(split.values()):.2f}")
+    del prob, iprob
+    for form, p1 in (("u16", p1u16), ("index", p1pk)):
+        split, staged = lane_stage_split(dev, p1, bitw, lens)
+        if staged != streams:
+            raise AssertionError("full dispatch: the staged streams differ")
+        log(f"full dispatch stages [{L}, {B}], {form} form, on {card}, ms, "
+            f"least of 3, the device idle between stages: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + f", sum {sum(split.values()):.2f}")
     lane = (err, ms, plain, bound, by)
-    fused = (s_err, s_ms, plain + plain_fin, s_bound, s_by)
-    return lane, fused, (streams, p1u16, bitw, lens)
+    fused = (s_err, *forms["u16"])
+    fused_idx = (i_err, *forms["index"])
+    unpack = (u_err, u_ms, u_plain, u_bound, u_by)
+    return lane, fused, fused_idx, unpack, (streams, p1u16, bitw, lens)
 
 
 SWEEP_LIMITS = (0x7FFF, 0x7FFE, 0x4000, 0x1000, 0x100, 0x60, 3, 0)
@@ -1111,8 +1417,9 @@ def nonempty_shards(n_rows, n):
 
 def phase_mesh_main_path(dev, clips):
     """device_compress(mesh=...) with several shards on card 0, both paths,
-    and the sharded decode; returns the launches of lane_encode_streams,
-    est_encode and lane_decode in the meshed calls."""
+    and the sharded decode; returns the launches of lane_encode_streams_idx
+    (the index form, which native traces take), est_encode and lane_decode
+    in the meshed calls."""
     counts = [0, 0, 0]  # launches of the meshed calls alone
     B = MESH_B
     for clip in clips:
@@ -1124,12 +1431,12 @@ def phase_mesh_main_path(dev, clips):
         traces = extract_traces(data, scope="gop", want_slots=False)[3]
         L = tlc.pack_lanes(traces, B)[0].shape[0]
         for n in MESH_SHARDS:
-            before = tlc.lane_encode_streams.launches
+            before = tlc.lane_encode_streams_idx.launches
             t0 = time.time()
             out = device_compress(data, mesh=make_mesh(n, device=dev),
                                   scope="gop", substream_bins=B)
             dt = time.time() - t0
-            grew = tlc.lane_encode_streams.launches - before
+            grew = tlc.lane_encode_streams_idx.launches - before
             counts[0] += grew
             if out != want:
                 raise AssertionError(f"{clip} n={n}: mesh != no mesh")
@@ -1182,7 +1489,7 @@ def phase_mesh_main_path(dev, clips):
                                  f"launches")
         log(f"mesh decode n={n}: {len(lens)} lanes, {grew} launches, equal "
             f"to the unsharded call and to the input bits")
-    log(f"mesh main path: lane_encode_streams.launches={counts[0]} "
+    log(f"mesh main path: lane_encode_streams_idx.launches={counts[0]} "
         f"est_encode.launches={counts[1]} lane_decode.launches={counts[2]}")
     if min(counts) <= 0:
         raise AssertionError("a mesh path never launched its kernel")
@@ -1454,8 +1761,8 @@ def main():
         host_lib = host.result()
     if host_lib is None or not native.available():
         raise RuntimeError("libavtpu.so was not built (make and g++ needed)")
-    log(f"build: lane_encode, lane_encode_streams, est_encode and "
-        f"lane_decode kernels {t_k:.1f} s "
+    log(f"build: lane_encode, lane_encode_streams (and its index form), "
+        f"unpack_p1_idx, est_encode and lane_decode kernels {t_k:.1f} s "
         f"({_build.library_path().name}); {host_lib.name} ready after "
         f"{time.time() - t0:.1f} s")
     log(_build.build_log().strip())
@@ -1468,23 +1775,38 @@ def main():
         ("carry", 1000, 4096), ("carry", 97, 1184), ("zero", 40, 512)])
     s_err = max(phase_streams_vs_plain(dev, STREAM_CASES),
                 lone_lane_vs_host(dev, LONE_LANE, 5))
-    overflow_lane = phase_overflow(dev, 1000, 4096)
+    i_err, u_err = phase_streams_idx_vs_plain(dev, STREAM_CASES)
+    i_err = max(i_err, lone_lane_vs_host(dev, LONE_LANE, 6, index=True))
+    # the fallback paths: counts from 0 to just after each
+    _zero_counts()
+    zero_u16 = phase_zero_p1(dev)
+    _zero_counts()
+    overflow = phase_overflow(dev, 1000, 4096)
     clock.mark("3 lane kernels vs plain")
 
     # 4 main path; the launch counts cover exactly this phase: one fused
-    # launch a device_compress call and a corpus call, none of lane_encode
-    tlc.lane_encode_streams.launches = tlc.lane_encode.launches = 0
-    phase_main_path(dev, (4096, 16384), MAIN_CLIPS)
-    launches = tlc.lane_encode_streams.launches
-    log(f"main path: lane_encode_streams.launches={launches}, "
-        f"lane_encode.launches={tlc.lane_encode.launches}")
-    if launches != 2 * (len(MAIN_CLIPS) + 1) or tlc.lane_encode.launches:
-        raise AssertionError("main path: not one lane_encode_streams launch "
-                             "a call, or lane_encode launched")
+    # launch of the index form a device_compress call and a corpus call
+    # (native traces' p1 lie on the squash grid), none of lane_encode,
+    # lane_encode_streams or unpack_p1_idx
+    _zero_counts()
+    _, idx_paths = phase_main_path(dev, (4096, 16384), MAIN_CLIPS)
+    others = {n: getattr(tlc, n).launches for n in (
+        "lane_encode_streams", "lane_encode", "unpack_p1_idx")}
+    log(f"main path: lane_encode_streams_idx.launches={idx_paths}, {others}")
+    if (idx_paths != {"device_compress": 2 * len(MAIN_CLIPS),
+                      "device_compress_corpus": 2} or any(others.values())):
+        raise AssertionError("main path: not one lane_encode_streams_idx "
+                             "launch a call, or another lane kernel launched")
+    # the u16 form on the same entry point, where p1 leave the squash image
+    _zero_counts()
+    off_image = phase_off_image(dev)
 
-    # 5 full-size dispatch: both kernels against plain at full width and depth
+    # 5 full-size dispatch: the kernels against plain at full width and
+    # depth, both upload forms
     ((full_lane_err, ms, plain_ms, lane_bound, lane_by),
      (full_s_err, s_ms, s_plain_ms, s_bound, s_by),
+     (full_i_err, i_ms, i_plain_ms, i_bound, i_by),
+     (full_u_err, u_ms, u_plain_ms, u_bound, u_by),
      full_group) = phase_full_dispatch(dev, CLIPS, FULL_L, FULL_B, card)
     clock.mark("4-5 lane main path and full group")
 
@@ -1536,15 +1858,24 @@ def main():
     phase_cli()
     clock.mark("14 command line")
 
-    lane_paths = {"entry": entry_lane, "overflow_fallback": overflow_lane,
+    lane_paths = {"entry": entry_lane,
+                  "overflow_fallback": overflow["lane_encode"],
                   "dryrun_multichip": rank_lane}
-    stream_paths = {"device_compress": launches, "mesh": mesh_lane}
+    stream_paths = {"lane_streams_device_compact, p1 off the squash image":
+                    off_image,
+                    "lane_streams_device_compact, a valid p1 = 0": zero_u16,
+                    "overflow_fallback": overflow["lane_encode_streams"]}
+    idx_paths["mesh"] = mesh_lane
+    idx_paths["overflow_fallback"] = overflow["lane_encode_streams_idx"]
+    unpack_paths = {"overflow_fallback": overflow["unpack_p1_idx"]}
     est_paths = {"device_compress": est_launches, "mesh": mesh_est,
                  "multichip_step": rank_est}
     dec_paths = {"device_decompress": dec_launches, "mesh": mesh_dec}
     for name, paths in (("lane_encode", lane_paths), ("est_encode", est_paths),
                         ("lane_decode", dec_paths),
-                        ("lane_encode_streams", stream_paths)):
+                        ("lane_encode_streams", stream_paths),
+                        ("lane_encode_streams_idx", idx_paths),
+                        ("unpack_p1_idx", unpack_paths)):
         log(f"{name} launches by main path: {paths}")
         if min(paths.values()) <= 0:
             raise AssertionError(f"{name}: a main path launched it no time")
@@ -1602,6 +1933,36 @@ def main():
         "bound_ms": s_bound,
         "bound_by": s_by,
         "library_ms": None,  # nor a range coder with its finalize
+    }, {
+        "name": "lane_encode_streams_idx",
+        "route": "cuda",
+        "source": "avrecode_tpu_torch/csrc/lane_streams.cu",
+        # _lane_pipeline_idx_jit: the 12-bit unpack and take, the Pallas
+        # kernel and the XLA finalize
+        "replaces": "avrecode_tpu/ops/lane_coder.py:426",
+        "launches": sum(idx_paths.values()),
+        "launches_by_path": idx_paths,
+        "max_abs_err": max(i_err, full_i_err),
+        "ms": i_ms,
+        "plain_ms": i_plain_ms,
+        "bound_ms": i_bound,
+        "bound_by": i_by,
+        "library_ms": None,  # nor a range coder fed from a table
+    }, {
+        "name": "unpack_p1_idx",
+        "route": "cuda",
+        "source": "avrecode_tpu_torch/csrc/p1_idx.cu",
+        # the unpack and take inside _lane_pipeline_idx_jit (XLA there)
+        "replaces": "avrecode_tpu/ops/lane_coder.py:432",
+        "launches": sum(unpack_paths.values()),
+        "launches_by_path": unpack_paths,
+        "max_abs_err": max(u_err, full_u_err),
+        "ms": u_ms,
+        "plain_ms": u_plain_ms,
+        "bound_ms": u_bound,
+        "bound_by": u_by,
+        # no one PyTorch call takes 12-bit fields apart and looks them up
+        "library_ms": None,
     }]}))
     print(card)
     # the smoke drives one card, whatever the machine holds

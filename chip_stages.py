@@ -14,10 +14,23 @@ copy overlaps a kernel).  Not a benchmark: no spread, small pinned clips.
              and mbaff_b.mkv at slice and gop scope: extract, pack, upload,
              range check, zero fill, kernel, read-back, finalize, container
   lane path  lane_streams_device_compact on one full dispatch group
-             [8192, 16384] tiled from the clips' real traces: upload,
-             kernel (lane_encode_streams), read-back, slicing; then the
-             ways to bring the group's p1 (268 MB) to the card, and the
-             parts of the read-back
+             [8192, 16384] tiled from the clips' real traces, in both upload
+             forms (u16 p1, and 12-bit squash indices from the native
+             packer): upload, kernel (lane_encode_streams /
+             lane_encode_streams_idx), read-back, slicing; then the ways to
+             bring the group's p1 (268 MB) to the card, and the parts of
+             the read-back
+  lane pack  the clips' real gop traces replicated to a full [8192, 16384]
+             group: the numpy packer (split_lanes_recs, then pack_p1_idx for
+             the index form) and the native one (host/native.lane_pack; its
+             u16 form where a p1 leaves the squash image, here one at the
+             group's first bin), each form's upload through the staging
+             ring, and _LaneBatcher._take's concatenation of a group from
+             files' rows
+  corpus     device_compress_corpus on the seven pinned clips at B = 4096
+             and 16384, containers/s, in the index form (the package) and in
+             the u16 form (its packer replaced by split_lanes_recs, the
+             packer before the index form), in turns
   decode     device_decompress(blob) on containers of rt_ctr.mkv and
              mbaff_b.mkv at gop scope, v2 (B = 4096) and v1: host model
              pass, pack, upload, kernel, read-back, split, host assembly
@@ -26,6 +39,7 @@ copy overlaps a kernel).  Not a benchmark: no spread, small pinned clips.
 import os
 import time
 
+import numpy as np
 import torch
 
 from avrecode_tpu_torch import codec
@@ -35,8 +49,8 @@ from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline
 from avrecode_tpu_torch.utils.container import SCOPE_GOP, SCOPE_SLICE
 from chip_smoke import (
-    CLIPS, FULL_B, FULL_L, ROOT, card_line, decompress_stages,
-    lane_stage_split, log, tiled_problem)
+    CLIPS, FULL_B, FULL_L, MAIN_CLIPS, ROOT, card_line, decompress_stages,
+    lane_stage_split, log, tiled_problem, tiled_trace)
 
 RUNS = 3
 
@@ -135,20 +149,151 @@ def est_stages(dev, clip, scope):
 
 def lane_stages(dev):
     p1u16, bitw, lens = tiled_problem(CLIPS, FULL_L, FULL_B)
-    tlc.lane_streams_device_compact(p1u16, bitw, lens, dev)  # pinned buffers
-    best, parts = lane_stage_split(dev, p1u16, bitw, lens, RUNS)
+    p1pk = tlc.pack_lanes([tiled_trace(CLIPS, FULL_L, FULL_B)], FULL_B)[0]
+    want = None
+    for form, p1 in (("u16", p1u16), ("index", p1pk)) * 2:
+        tlc.lane_streams_device_compact(p1, bitw, lens, dev)  # pinned buffers
+        best, parts = lane_stage_split(dev, p1, bitw, lens, RUNS)
+        st = Stages()
+        st.best = best
+        for _ in range(RUNS):
+            whole = st.time("lane_streams_device_compact", lambda:
+                            tlc.lane_streams_device_compact(p1, bitw, lens,
+                                                            dev))
+            if parts != whole or (want is not None and whole != want):
+                raise RuntimeError("the staged run, the whole call or the "
+                                   "two forms differ")
+            want = whole
+        wall, busy = device_busy_ms(
+            lambda: tlc.lane_streams_device_compact(p1, bitw, lens, dev))
+        log(f"lane stages [{FULL_L}, {FULL_B}], {form} form, ms: "
+            f"{st.line()}; profiled call {wall:.2f} ms wall, device busy "
+            f"{busy:.2f} ms, idle {1 - busy / wall:.1%}")
+
+
+def replicated_traces(clips, L, B):
+    """The clips' gop traces, repeated in order until their lanes fill L
+    rows of B bins exactly (the last one cut short), and the extracted
+    traces they view (kept alive by the caller)."""
+    owners = []
+    for c in clips:
+        with open(os.path.join(ROOT, "data", c), "rb") as f:
+            owners += native.extract(f.read(), "gop", want_slots=False)[3]
+    out, rows = [], 0
+    while rows < L:
+        for t in owners:
+            k = max(1, -(-len(t) // B))
+            if rows + k > L:
+                k = L - rows
+                t = native.NativeTrace(t.recs[: k * B], t.limits)
+            out.append(t)
+            rows += k
+            if rows == L:
+                break
+    return out, owners
+
+
+def lane_pack_stage(dev):
+    """The lane pack stage on a full group of real traces, both packers
+    and both forms; each form's upload through the staging ring; the
+    batcher's concatenation of a group from files' rows."""
+    traces, owners = replicated_traces(CLIPS, FULL_L, FULL_B)
+    n_bins = sum(map(len, traces))
+    # the same traces with one p1 off the squash image, at the first bin
+    first = native.NativeTrace(traces[0].recs.copy(), traces[0].limits)
+    first.recs[0] = (first.recs[0] & np.uint64((1 << 48) - 1)) | np.uint64(
+        2 << 48)
+    foreign = [first] + traces[1:]
     st = Stages()
-    st.best = best
+    out = {}
     for _ in range(RUNS):
-        whole = st.time("lane_streams_device_compact", lambda:
-                        tlc.lane_streams_device_compact(p1u16, bitw, lens, dev))
-        if parts != whole:
-            raise RuntimeError("the staged run and the whole call differ")
-    wall, busy = device_busy_ms(
-        lambda: tlc.lane_streams_device_compact(p1u16, bitw, lens, dev))
-    log(f"lane stages [{FULL_L}, {FULL_B}], ms: {st.line()}; profiled call "
-        f"{wall:.2f} ms wall, device busy {busy:.2f} ms, idle "
-        f"{1 - busy / wall:.1%}")
+        out["numpy u16"] = st.time("numpy split_lanes_recs (u16)",
+                                   lambda: tlc.split_lanes_recs(traces,
+                                                                FULL_B))
+        p1u16, _, lens, _ = out["numpy u16"]
+        out["numpy index"] = st.time(
+            "numpy pack_p1_idx on top (index)",
+            lambda: tlc.pack_p1_idx(p1u16, lens))
+        out["native index"] = st.time(
+            "native lane_pack (index)",
+            lambda: native.lane_pack(traces, FULL_B, FULL_B))
+        out["native u16"] = st.time(
+            "native lane_pack (u16, a foreign p1 at the first bin)",
+            lambda: native.lane_pack(foreign, FULL_B, FULL_B))
+    p1u16, bitw, lens, spans = out["numpy u16"]
+    p1pk = out["numpy index"][0]
+    nat = out["native index"]
+    if (p1u16.shape[0] != FULL_L or nat[0].dtype != np.uint8
+            or not np.array_equal(nat[0], p1pk)
+            or not np.array_equal(nat[1], bitw) or nat[3] != spans
+            or out["native u16"][0].dtype != np.uint16):
+        raise RuntimeError("the packers disagree")
+    fu16 = tlc.split_lanes_recs(foreign, FULL_B)[0]
+    if not np.array_equal(out["native u16"][0], fu16):
+        raise RuntimeError("the native u16 form differs from numpy's")
+    del out, fu16, foreign, first
+    log(f"lane pack [{FULL_L}, {FULL_B}] ({len(traces)} real gop traces, "
+        f"{n_bins} bins, {torch.get_num_threads()} host threads), ms, least "
+        f"of {RUNS}: {st.line()}; ns a bin: "
+        + ", ".join(f"{v * 1e6 / n_bins:.2f}" for v in st.best.values()))
+
+    st = Stages()
+    for _ in range(RUNS):
+        for form, p1 in (("u16", p1u16), ("index", p1pk)):
+            st.time(f"upload, {form} form ({p1.nbytes + bitw.nbytes + lens.nbytes} B)",
+                    lambda: [tlc._upload(a, dev) for a in (p1, bitw, lens)])
+    log(f"lane upload through the staging ring, p1 or packed indices, bit "
+        f"words and lens, ms, least of {RUNS}: {st.line()}")
+
+    # a group taken from ~100 files' rows, as the corpus batcher takes it
+    st = Stages()
+    for _ in range(RUNS):
+        for form, p1 in (("u16", p1u16), ("index", p1pk)):
+            bat = pipeline._LaneBatcher(lambda *a: [], FULL_L)
+            cuts = np.linspace(0, FULL_L, 101).astype(int)
+            bat.segs = [[p1[a:b], bitw[a:b], lens[a:b]]
+                        for a, b in zip(cuts[:-1], cuts[1:])]
+            bat.acc = FULL_L
+            st.time(f"_LaneBatcher._take, {form} form",
+                    lambda: bat._take(FULL_L))
+    log(f"lane batcher, a group from 100 files' rows, ms, least of {RUNS}: "
+        f"{st.line()}")
+    del owners
+
+
+def corpus_forms(dev):
+    """device_compress_corpus on the pinned clips in both upload forms, in
+    turns (index, u16, u16, index, ...): containers/s on the host clock."""
+    datas = []
+    for c in MAIN_CLIPS:
+        with open(os.path.join(ROOT, "data", c), "rb") as f:
+            datas.append(f.read())
+    for B in (4096, 16384):
+        want = None
+        times = {"index": [], "u16": []}
+        for form in ("index", "u16", "u16", "index") * 5:
+            if form == "u16":  # the packer before the index form
+                pipeline.pack_lanes = tlc.split_lanes_recs
+            try:
+                before = tlc.lane_encode_streams_idx.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = pipeline.device_compress_corpus(
+                    datas, scope="gop", substream_bins=B, device=dev)
+                times[form].append(time.perf_counter() - t0)
+                took_idx = tlc.lane_encode_streams_idx.launches > before
+            finally:
+                pipeline.pack_lanes = tlc.pack_lanes
+            if took_idx != (form == "index") or (want and outs != want):
+                raise RuntimeError(f"corpus {form} form: wrong form or "
+                                   f"containers")
+            want = outs
+        log(f"corpus B={B}, {len(datas)} clips, s a call in turns: "
+            + "; ".join(f"{form} form "
+                        + ", ".join(f"{t:.4f}" for t in ts)
+                        + f", median {np.median(ts):.4f} = "
+                        f"{len(datas) / np.median(ts):.2f} containers/s"
+                        for form, ts in times.items()))
 
 
 def lane_transfer_parts(dev):
@@ -226,7 +371,9 @@ def main():
     for clip in ("rt_ctr.mkv", "mbaff_b.mkv"):
         for scope in ("slice", "gop"):
             est_stages(dev, clip, scope)
+    lane_pack_stage(dev)
     lane_stages(dev)
+    corpus_forms(dev)
     lane_transfer_parts(dev)
     for clip in ("rt_ctr.mkv", "mbaff_b.mkv"):
         for B in (4096, 0):

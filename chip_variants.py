@@ -5,10 +5,11 @@ package, on one GPU.
     python3 chip_variants.py NAME=path/to/variant.cu[,-DFLAG...] ...
 
 A variant is any source with the launcher of the kernel it varies:
-`lane_encode_launch`, `lane_encode_streams_launch`, `est_encode_launch` or
+`lane_encode_launch`, `lane_encode_streams_launch`,
+`lane_encode_streams_idx_launch`, `est_encode_launch` or
 `lane_decode_launch`, with the signature of avrecode_tpu_torch/csrc (which
-of the four is read from NAME: it starts with "lane", "streams", "est" or
-"decode").  Every variant is built with nvcc (sm_90a), all at
+of the five is read from NAME: it starts with "lane", "streams", "idx",
+"est" or "decode").  Every variant is built with nvcc (sm_90a), all at
 once; its outputs are held against the package's kernel on the same
 tensors (exact), and both are timed with CUDA events, two windows each.  A
 variant whose NAME holds "ablate" is one with a piece taken out on purpose
@@ -21,6 +22,12 @@ timed, and its wrong output is reported but not refused.
   streams  the lane problems, through the fused kernel (M = B / 4 + 8;
         B + 8 on the carry-stress lanes); a variant must give the package
         kernel's nbytes, total and out[l, :nbytes[l]]
+  idx   the same lanes in the index form (the full group packed from the
+        tiled records by the native packer; the carry-stress lanes on the
+        squash grid), through the fused kernel's index launcher, held to
+        the package's index launcher; the `streams` kernels also run on the
+        u16 form of these very lanes (their indices unpacked), so that
+        both forms are timed, and held equal, on one set of lanes
   est   the clips' longest slice trace alone and 128 times, and the clips'
         slice traces replicated to 1,024
   decode  the streams of that full dispatch group and of its first 55
@@ -45,7 +52,7 @@ from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.ops import lane_decoder as tld
 from chip_smoke import (
     CLIPS, ROOT, card_line, cuda_ms, decode_problem, lanes, log,
-    one_long_lane, streams_diff, tiled_problem)
+    one_long_lane, squash_lanes, streams_diff, tiled_problem, tiled_trace)
 
 PTR = ctypes.c_void_p
 OUT_DIR = os.path.join(ROOT, "build", "variants")
@@ -57,7 +64,7 @@ def build_all(variants):
     procs = {}
     for name, (src, flags) in variants.items():
         out = os.path.join(OUT_DIR, name + ".so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", out, src]
+        cmd = _build.nvcc_command(out, [src], flags)
         procs[name] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -97,6 +104,25 @@ def streams_runner(lib):
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"lane_encode_streams_launch: cudaError {err}")
+
+    return run
+
+
+def idx_runner(lib):
+    lib.lane_encode_streams_idx_launch.argtypes = (
+        [PTR] * 7 + [ctypes.c_int] * 3 + [PTR])
+    lib.lane_encode_streams_idx_launch.restype = ctypes.c_int
+
+    def run(prob, out):
+        p1pk, bitw, lens = prob[:3]
+        L, Bp = p1pk.shape[0], tlc.lane_bins(p1pk)
+        err = lib.lane_encode_streams_idx_launch(
+            p1pk.data_ptr(), tlc._squash_on(p1pk.device).data_ptr(),
+            *(t.data_ptr() for t in (bitw, lens, *out)), L, Bp,
+            out[0].shape[1], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"lane_encode_streams_idx_launch: cudaError "
+                               f"{err}")
 
     return run
 
@@ -177,6 +203,7 @@ def main(argv):
     csrc = os.path.join(ROOT, "avrecode_tpu_torch", "csrc")
     variants = {"lane_package": (os.path.join(csrc, "lane_encode.cu"), []),
                 "streams_package": (os.path.join(csrc, "lane_streams.cu"), []),
+                "idx_package": (os.path.join(csrc, "lane_streams.cu"), []),
                 "est_package": (os.path.join(csrc, "est_encode.cu"), []),
                 "decode_package": (os.path.join(csrc, "lane_decode.cu"), [])}
     for arg in argv:
@@ -207,13 +234,38 @@ def main(argv):
              if n.startswith("streams")}
 
     def streams_out(prob):
-        L, Bp = prob[0].shape
+        L, Bp = prob[0].shape[0], tlc.lane_bins(prob[0])
         M = tlc.max_bytes(Bp, 4 if Bp == 16384 else 1)
         return (torch.zeros((L, M), dtype=torch.uint8, device=dev),
                 torch.empty(L, dtype=torch.int32, device=dev),
                 torch.empty(L, dtype=torch.int32, device=dev))
 
     compare("streams", problems, fused, streams_out, lambda p: p[0].shape[1],
+            same=streams_equal)
+    del problems
+
+    # an index problem carries its lanes' u16 form as a fourth tensor: the
+    # streams kernels run on (p1, bitw, lens) of the very same lanes
+    idx = {n: idx_runner(lib) for n, lib in libs.items() if n.startswith("idx")}
+    for n, run in fused.items():
+        idx[f"{n} (u16 form)"] = (
+            lambda prob, out, run=run: run((prob[3], *prob[1:3]), out))
+
+    def with_u16(pk, bitw, lens):
+        prob = tlc.from_numpy_problem(pk, bitw, lens, dev)
+        return (*prob, tlc.unpack_p1_idx_plain(prob[0]))
+
+    pk, bitw, lens, _ = tlc.pack_lanes([tiled_trace(CLIPS, 8192, 16384)],
+                                       16384)
+    problems = {
+        "[8192, 16384]": with_u16(pk, bitw, lens),
+        "[55, 16384]": with_u16(pk[:55], bitw[:55], lens[:55]),
+        "ragged carry [1000, 4096]": with_u16(
+            *squash_lanes("carry", 1000, 4096, 3)),
+    }
+    del pk, bitw, lens
+
+    compare("idx", problems, idx, streams_out, lambda p: tlc.lane_bins(p[0]),
             same=streams_equal)
     del problems
 

@@ -24,6 +24,7 @@ from avrecode_tpu_torch.parallel.pipeline import (
 from chip_smoke import (
     EST_CASES, EST_SWEEP, LONE_LANE, LONE_UNIT, STREAM_CASES,
     lone_lane_vs_host, one_long_lane, streams_diff)
+from chip_smoke import squash_lanes
 from chip_smoke import decode_problem as _decode_problem
 from chip_smoke import est_problem as _est_problem
 from chip_smoke import lanes as _problem
@@ -92,6 +93,55 @@ def test_streams_kernel_lone_lane(cuda):
     assert lone_lane_vs_host(cuda, LONE_LANE, 5) == 0
 
 
+# the same cases in the index form: p1 on the squash table's image (every
+# index among the valid bins of the larger problems), padding index 0
+@pytest.mark.parametrize("kind, L, B, cut, bits_per_byte", STREAM_CASES)
+def test_streams_idx_kernel_matches_plain(cuda, kind, L, B, cut,
+                                          bits_per_byte):
+    prob = tlc.from_numpy_problem(
+        *squash_lanes(kind, L, B, seed=L + B, cut=cut), cuda)
+    M = tlc.max_bytes(B, bits_per_byte)
+    before = tlc.lane_encode_streams_idx.launches
+    got = tlc.lane_encode_streams_idx(*prob, M)
+    torch.cuda.synchronize()
+    assert tlc.lane_encode_streams_idx.launches == before + 1
+    assert got[0].shape == (L, M) and all(t.is_cuda for t in got)
+    assert streams_diff(got, tlc.lane_encode_streams_idx_plain(*prob, M),
+                        M) == 0
+    p1 = tlc.unpack_p1_idx(prob[0])
+    assert torch.equal(p1, tlc.unpack_p1_idx_plain(prob[0]))
+    assert streams_diff(got, tlc.lane_encode_streams(p1, *prob[1:], M),
+                        M) == 0
+
+
+def test_streams_idx_kernel_lone_lane(cuda):
+    assert lone_lane_vs_host(cuda, LONE_LANE, 6, index=True) == 0
+
+
+def test_idx_overflow_path_unpacks_on_the_card(cuda):
+    pk, bitw, lens = squash_lanes("carry", 40, 2048, seed=9)
+    host = tlc.lane_streams_device_compact(pk, bitw, lens, "cpu",
+                                           bits_per_byte=1)
+    counts = {n: getattr(tlc, n).launches for n in (
+        "lane_encode_streams_idx", "unpack_p1_idx", "lane_encode")}
+    dense = tlc.lane_streams_device_compact(pk, bitw, lens, cuda,
+                                            bits_per_byte=1000)
+    assert dense == host
+    assert {n: getattr(tlc, n).launches - c for n, c in counts.items()} == {
+        "lane_encode_streams_idx": 1, "unpack_p1_idx": 1, "lane_encode": 1}
+
+
+def test_streams_idx_kernel_rejects_misaligned_indices(cuda):
+    pk, bitw, lens = tlc.from_numpy_problem(
+        *squash_lanes("random", 2, 64, seed=1), cuda)
+    flat = torch.zeros(2 * 96 + 4, dtype=torch.uint8, device=cuda)
+    view = flat[4:].view(2, 96)  # contiguous, four bytes off the boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        tlc.lane_encode_streams_idx(view, bitw, lens, 24)
+    with pytest.raises(ValueError, match="4-byte"):
+        tlc.unpack_p1_idx(flat[1:97].view(1, 96))
+
+
 def test_kernel_streams_and_overflow_path(cuda):
     p1u16, bitw, lens = _problem("carry", 40, 2048, seed=9)
     host = tlc.lane_streams_device_compact(p1u16, bitw, lens, "cpu",
@@ -113,10 +163,12 @@ def test_main_path_launches_kernel(cuda):
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "rt_ctr.mkv"), "rb").read()
-    before = tlc.lane_encode_streams.launches
-    unfused = tlc.lane_encode.launches
+    before = tlc.lane_encode_streams_idx.launches
+    u16, unfused = tlc.lane_encode_streams.launches, tlc.lane_encode.launches
     out = device_compress(data, scope="gop", substream_bins=4096, device=cuda)
-    assert tlc.lane_encode_streams.launches == before + 1
+    # native traces' p1 lie on the squash grid: the index form
+    assert tlc.lane_encode_streams_idx.launches == before + 1
+    assert tlc.lane_encode_streams.launches == u16
     assert tlc.lane_encode.launches == unfused
     assert out == codec.compress(data, scope="gop", substream_bins=4096)
 
@@ -306,8 +358,8 @@ def _cuda_step_rank(rank, world, device, arrays):
 @pytest.mark.parametrize("n", [1, 4, 7])
 def test_mesh_of_streams_on_one_card(cuda, n):
     """n shards on streams of card 0: the bytes of the call without a mesh,
-    one lane_encode_streams launch a non-empty shard; the est path and the
-    sharded decode alike."""
+    one lane_encode_streams_idx launch a non-empty shard (native traces take
+    the index form); the est path and the sharded decode alike."""
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
@@ -315,9 +367,9 @@ def test_mesh_of_streams_on_one_card(cuda, n):
     assert mesh == (torch.device("cuda", 0),) * n
     traces = extract_traces(data, scope="gop", want_slots=False)[3]
     L = tlc.pack_lanes(traces, 4096)[0].shape[0]
-    before = tlc.lane_encode_streams.launches
+    before = tlc.lane_encode_streams_idx.launches
     out = device_compress(data, mesh=mesh, scope="gop", substream_bins=4096)
-    assert tlc.lane_encode_streams.launches - before == min(n, L)
+    assert tlc.lane_encode_streams_idx.launches - before == min(n, L)
     assert out == codec.compress(data, scope="gop", substream_bins=4096)
     before = tec.est_encode.launches
     est = device_compress(data, mesh=mesh, scope="gop", substream_bins=0)
