@@ -37,10 +37,11 @@
 // design, ~36 instructions a bin) ran at 98 cycles a bin, four warps alone
 // on the card as slowly as 512.
 //
-// Design: a block of two warps codes 32 lanes, every thread busy, and each
-// lane's work is split between them; each warp runs on a scheduler of its
-// own (chip_latency.cu's `where` probe: the two warps of all 256 blocks of
-// a full group land on different sub-partitions).
+// Design: two warps code a lane group of 32 lanes, every thread busy, and
+// each lane's work is split between them; in the u16 form a block is one
+// group, and each warp runs on a scheduler of its own (chip_latency.cu's
+// `where` probe: the two warps of all 256 blocks of a full group land on
+// different sub-partitions).
 //   * The chain warp runs the (low, rng) recurrence, one thread a lane, over
 //     128-bin tiles of p1 and bit words that it copies into shared memory
 //     with cp.async a tile ahead (two buffers, a row padded by 16 bytes,
@@ -86,18 +87,36 @@
 //     scans its resolved bytes backward from the cut for the last non-zero
 //     one (a running "last non-zero" would be wrong: a ripple turns 0xFF
 //     into 0x00).
-//   * A block codes only as many tiles as its longest lane has bins.
-//   * The index form adds a third warp, the producer, and leaves the chain
-//     warp as it is in the u16 form.  The producer copies each tile of
-//     packed indices (192 bytes a row, 12 cp.async chunks) and bit words
-//     into shared memory a tile ahead, looks every 12-bit field up in the
-//     squash table (8 KB of shared memory, copied in by the block at its
-//     start) and writes the u16 form's p1 tile, which the chain warp reads
-//     as it reads an uploaded one; named barriers P1FULL and P1EMPTY a
-//     buffer hand the tiles over.  Warps 0, 1 and 2 are the chain, the
-//     producer and the stream warp: with two blocks an SM the fifth and
-//     sixth warps share a scheduler with the first two, so a chain warp
-//     shares its scheduler with a producer, the lightest of the three.
+//   * A lane group codes only as many tiles as its longest lane has bins.
+//   * The index form adds a producer warp to each lane group and leaves the
+//     chain warp's coding as it is in the u16 form.  The producer copies
+//     each tile of packed indices (192 bytes a row, 12 cp.async chunks) and
+//     bit words into shared memory a tile ahead, looks every 12-bit field up
+//     in the squash table (8 KB of static shared memory, copied in by the
+//     block at its start; a field is taken out as a byte offset, so a lookup
+//     is one load) and writes the u16 form's p1 tile, which the chain warp
+//     reads as it reads an uploaded one.  16 threads work along a row, 8
+//     bins each, so that neighbouring threads read neighbouring 12-byte
+//     groups and store neighbouring 16-byte chunks: no bank conflict (one
+//     thread a row, the first design, read three words at a time from rows
+//     52 words apart: 4 ways).  A thread's 8 lookups a step are the burst:
+//     the shared memory serves the whole SM, and when a producer fired 32
+//     lookups at once the chain warp's own loads and stores queued behind
+//     them (the full group 0.61-0.62 ms against 0.57-0.58).  The stream
+//     warp's record loads run one step ahead.  Hand-over: named barrier
+//     P1FULL + b (tile b written), and P1EMPTY + b (coded) as an mbarrier,
+//     which only the producer waits on.
+//   * Where the index form's warps run: a block is one lane group (4 warps)
+//     where every group gets an SM of its own, else two (8 warps, 64 lanes;
+//     132 SMs hold 8,448 lanes, a full group in one wave).  Its shared
+//     memory, 175,136 bytes, keeps it alone on its SM, so warp w lands on
+//     scheduler w % 4 (chip_latency.cu's `where`): the chain warps have a
+//     scheduler each to themselves, the producer shares one with its
+//     group's stream warp, or with none in a one-group block.  Every
+//     instruction another warp issues on a chain warp's scheduler slows the
+//     chain (~1.1-1.8 cycles a bin for each instruction a bin); the earlier
+//     block of three warps for 32 lanes, two blocks an SM, put one chain warp
+//     of each SM beside the other block's producer.
 // Tried on the way ([8192, 16384]; the one-thread design 0.795-0.814 ms in
 // the same calls): the same split with the record carrying the count and
 // the stream warp's held-byte select written as nested conditionals, which
@@ -111,8 +130,16 @@
 // ms in the same call): the chain warp unpacking as it loads, three word
 // loads, eight fields and eight table loads for 8 bins on the chain warp,
 // 0.716-0.724 ms; the stream warp writing the p1 tile a tile ahead,
-// 0.848-0.849 (it then sets the pace); the producer warp (kept), 0.621-0.623,
-// and 0.531 against 0.562-0.566 with 55 lanes, where no scheduler is shared.
+// 0.848-0.849 (it then sets the pace); a producer warp in a block of three
+// warps for 32 lanes, 0.621-0.623, and 0.531 against 0.562-0.566 with 55
+// lanes, where no scheduler is shared.  Then, against that producer's
+// 0.62-0.64 in the same calls: two groups a block with the producer beside
+// the stream warp, 16 threads a row and four rows (32 lookups a thread) at
+// once, 0.610-0.621; the producer split over two warps, one beside each of
+// a group's warps, 0.605-0.621; the whole producer beside the chain warp,
+// 0.613-0.625; 32 bins a thread, 8 at a time, 0.575-0.590 (its word loads
+// meet 4-way conflicts); the stream warp's loads not ahead, 0.597-0.622;
+// the chain warp's p1 loads one step ahead too, ~1.4 cycles a bin slower.
 //
 // Two switches take a piece out, for chip_variants.py to time what it costs
 // (the output is then wrong): -DSTREAMS_NO_SETTLE skips the pass after a
@@ -128,9 +155,8 @@ namespace {
 
 constexpr uint32_t kTop = 1u << 24;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kRows = 32;                     // lanes a block
-constexpr int kThreads = 2 * kRows;           // the chain and the stream warp
-constexpr int kMaxThreads = 3 * kRows;        // and the index form's producer
+constexpr int kRows = 32;                     // lanes a lane group
+constexpr int kThreads = 2 * kRows;           // its chain and stream warp
 constexpr int kTileBins = 128;                // bins a lane, per tile
 constexpr int kP1Row = kTileBins * 2 + 16;    // bytes: p1, then bit words
 constexpr int kP1Tile = kRows * kP1Row;       // 8,704
@@ -146,23 +172,32 @@ constexpr int kUnsent = 272;
 constexpr int kUnsentRow = 8 + kUnsent + 16;      // elements
 constexpr int kUnsentTile = kRows * kUnsentRow * 2;     // 18,944 bytes
 constexpr int kSmemBytes = 2 * kP1Tile + 2 * kRecTile + kUnsentTile;  // 70,144
-// the index form's: the squash table, then two tiles of packed indices, a
-// row 192 bytes and the row's four bit words
+// the index form's block: at most two lane groups (see the kernel); the
+// squash table in static shared memory, then two mbarriers a group and each
+// group's u16 form's buffers and two tiles of packed indices, the rows 192
+// bytes apart with no padding (two rows are 96 words: 32 threads reading a
+// word each at 12-byte steps hit 32 banks), then the rows' bit words
+constexpr int kGroups = 2;  // at most, a block
 constexpr int kSquashBytes = 4096 * 2;
-constexpr int kRawRow = kTileBins * 3 / 2 + 16;
-constexpr int kRawTile = kRows * kRawRow;      // 6,656
-constexpr int kIdxSmemBytes = kSmemBytes + kSquashBytes + 2 * kRawTile;
+constexpr int kBarBytes = kGroups * 2 * 8;  // a group's two P1EMPTY mbarriers
+constexpr int kRawRow = kTileBins * 3 / 2;                 // 192
+constexpr int kRawBits = kRows * kRawRow;                  // 6,144
+constexpr int kRawTile = kRawBits + kRows * 16;            // 6,656
+constexpr int kIdxGroupBytes = kSmemBytes + 2 * kRawTile;  // 83,456
+constexpr int kIdxDynBytes = kBarBytes + kGroups * kIdxGroupBytes;  // 166,944
 
 constexpr uint32_t kValue = 0x3FFu;  // an element's byte, with its excess
 constexpr int kCountShift = 12;      // the token's carry count above it
 
-// named barriers of two warps: FULL + b (records of buffer b written),
-// EMPTY + b (read); the index form's P1FULL + b (p1 tile b written) and
-// P1EMPTY + b (coded)
-constexpr int kBarFull = 1;
-constexpr int kBarEmpty = 3;
-constexpr int kBarP1Full = 5;
-constexpr int kBarP1Empty = 7;
+// a lane group's named barriers of two warps, from its base id on (1, and 7
+// for the index form's second group): FULL + b (records of buffer b
+// written) and EMPTY + b (read), between the chain and the stream warp; in
+// the index form P1FULL + b (p1 tile b written), between the producer and
+// the chain warp
+constexpr int kBarFull = 0;
+constexpr int kBarEmpty = 2;
+constexpr int kBarP1Full = 4;
+constexpr int kBarIds = 6;
 
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
@@ -170,6 +205,39 @@ __device__ __forceinline__ void bar_sync(int id) {
 
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+// The index form's P1EMPTY + b (p1 tile b coded): an mbarrier in shared
+// memory, since two groups' four named barriers each would need 16 ids and
+// a block has 15 besides __syncthreads'.  The chain warp arrives (release),
+// the producer waits (acquire); use k of a buffer completes phase k, of
+// parity k & 1.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT;\n\t}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 struct ChainState {
@@ -301,27 +369,30 @@ __device__ __noinline__ int settle(uint16_t* unsent,
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
                : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
                : "memory");
 }
 
-// The index form's producer: copies tiles of packed indices and bit words
-// into shared memory (cp.async, a tile a commit group, empty groups past
-// the last tile) and writes them out as the u16 form's p1 tiles.
+// The index form's producer warp: copies tiles of packed indices and bit
+// words into shared memory (cp.async, a tile a commit group, empty groups
+// past the last tile) and writes them out as the u16 form's p1 tiles.
 struct Producer {
   const unsigned char* pk;  // packed index rows, 3 * Bp / 2 bytes each
-  const uint16_t* sq;       // the squash table in shared memory
+  const unsigned char* sq;  // the squash table, in static shared memory
   const uint32_t* bitw;
   unsigned char* s_raw;
   unsigned char* s_p1;
-  int tid, lane0, rows, nt, Bp;
+  uint64_t* p1empty;  // the group's P1EMPTY + b
+  int bar, tid, lane0, rows, nt, Bp;
 
   __device__ __forceinline__ void load(int t) const {
     if (t < nt) {
@@ -336,7 +407,7 @@ struct Producer {
                          static_cast<size_t>(b0) * 3 / 2 + c * 16);
       if (tid < rows)
         for (int w = 0; w < tw / 32; ++w)
-          cp_async4(buf + tid * kRawRow + kTileBins * 3 / 2 + w * 4,
+          cp_async4(buf + kRawBits + tid * 16 + w * 4,
                     bitw + static_cast<size_t>(lane0 + tid) * (Bp / 32) +
                         b0 / 32 + w);
     }
@@ -344,48 +415,56 @@ struct Producer {
   }
 
   // tile t, its copy landed (the group after it may be in flight), into p1
-  // tile t & 1: a row a thread, 8 bins (three words, 12-bit fields) a step
+  // tile t & 1: 16 threads along a row, 8 bins (three words, eight lookups,
+  // one 16-byte store) each, two rows a step; neighbouring threads read
+  // neighbouring 12-byte groups and store neighbouring 16-byte chunks, so
+  // neither meets a bank conflict; a thread a row moves the row's bit words
   __device__ __forceinline__ void convert(int t) const {
     asm volatile("cp.async.wait_group 1;" ::: "memory");
     __syncwarp();
-    if (tid < rows) {
-      const int tw = min(kTileBins, Bp - t * kTileBins);
-      const unsigned char* src = s_raw + (t & 1) * kRawTile + tid * kRawRow;
-      unsigned char* dst = s_p1 + (t & 1) * kP1Tile + tid * kP1Row;
-      for (int g = 0; g < tw / 8; ++g) {
-        const uint32_t* w = reinterpret_cast<const uint32_t*>(src + g * 12);
-        *reinterpret_cast<uint4*>(dst + g * 16) =
+    const int tw = min(kTileBins, Bp - t * kTileBins);
+    const unsigned char* raw = s_raw + (t & 1) * kRawTile;
+    unsigned char* p1t = s_p1 + (t & 1) * kP1Tile;
+    const int j = tid & 15;  // bins 8j to 8j + 7 of a row
+    if (j < tw / 8) {
+#pragma unroll 1
+      for (int r = tid >> 4; r < rows; r += 2) {
+        const uint32_t* w =
+            reinterpret_cast<const uint32_t*>(raw + r * kRawRow + j * 12);
+        *reinterpret_cast<uint4*>(p1t + r * kP1Row + j * 16) =
             unpack8_p1(w[0], w[1], w[2], sq);
       }
-      *reinterpret_cast<uint4*>(dst + kTileBins * 2) =
-          *reinterpret_cast<const uint4*>(src + kTileBins * 3 / 2);
     }
+    if (tid < rows)
+      *reinterpret_cast<uint4*>(p1t + tid * kP1Row + kTileBins * 2) =
+          *reinterpret_cast<const uint4*>(raw + kRawBits + tid * 16);
     __syncwarp();  // the raw buffer may be refilled
   }
 };
 
-// The producer warp's loop: tile t into p1 buffer t & 1 once the chain warp
+// A producer warp's loop: tile t into p1 buffer t & 1 once the chain warp
 // has coded tile t - 2 from it.
 __device__ __forceinline__ void producer_warp(const Producer& prod) {
   if (prod.nt == 0) return;
   prod.load(0);
   prod.load(1);
   for (int t = 0; t < prod.nt; ++t) {
-    if (t >= 2) bar_sync(kBarP1Empty + (t & 1));
+    if (t >= 2) mbar_wait(prod.p1empty + (t & 1), ((t >> 1) - 1) & 1);
     prod.convert(t);
-    bar_arrive(kBarP1Full + (t & 1));
+    bar_arrive(prod.bar + kBarP1Full + (t & 1));
     prod.load(t + 2);
   }
 }
 
-// The chain warp: codes the block's lanes tile by tile and hands over a
+// The chain warp: codes the group's lanes tile by tile and hands over a
 // record a bin, then the flush.  kFed (the index form): the producer writes
-// the p1 tiles; else the chain warp copies them in itself.
+// the p1 tiles (p1empty: the group's P1EMPTY mbarriers); else the chain
+// warp copies them in itself.  bar: the group's first named barrier.
 template <bool kFed>
 __device__ __forceinline__ void chain_warp(
     const uint16_t* __restrict__ p1, const uint32_t* __restrict__ bitw,
-    unsigned char* s_p1, unsigned char* s_rec, int tid, int lane0, int rows,
-    int n_valid, int nt, int Bp) {
+    unsigned char* s_p1, unsigned char* s_rec, uint64_t* p1empty, int bar,
+    int tid, int lane0, int rows, int n_valid, int nt, int Bp) {
   const bool owner = tid < rows;
   const int lane = lane0 + tid;
 
@@ -412,7 +491,7 @@ __device__ __forceinline__ void chain_warp(
   if (!kFed && nt > 0) load_tile(0);
   for (int t = 0; t < nt; ++t) {
     if (kFed) {
-      bar_sync(kBarP1Full + (t & 1));
+      bar_sync(bar + kBarP1Full + (t & 1));
     } else if (t + 1 < nt) {
       load_tile(t + 1);
       asm volatile("cp.async.wait_group 1;" ::: "memory");
@@ -420,7 +499,7 @@ __device__ __forceinline__ void chain_warp(
       asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
     __syncwarp();
-    if (t >= 2) bar_sync(kBarEmpty + (t & 1));  // the stream warp read t - 2
+    if (t >= 2) bar_sync(bar + kBarEmpty + (t & 1));  // the stream warp read t - 2
 
     const int b0 = t * kTileBins;
     const int tw = min(kTileBins, Bp - b0);  // bins of this tile
@@ -442,29 +521,31 @@ __device__ __forceinline__ void chain_warp(
       }
     }
     __syncwarp();  // before the next tile overwrites the p1 buffer
-    bar_arrive(kBarFull + (t & 1));
-    if (kFed && t + 3 <= nt)
-      bar_arrive(kBarP1Empty + (t & 1));  // the producer may refill
+    bar_arrive(bar + kBarFull + (t & 1));
+    if (kFed) mbar_arrive(p1empty + (t & 1));  // the producer may refill
   }
 
   // the flush as one more record, in the buffer of "tile" nt: low rounded
   // up to the next 2^24 multiple, then two byte shifts
-  if (nt >= 2) bar_sync(kBarEmpty + (nt & 1));
+  if (nt >= 2) bar_sync(bar + kBarEmpty + (nt & 1));
   if (owner) {
     const uint32_t low_r = (st.low + (kTop - 1)) & 0xFF000000u;
     *reinterpret_cast<uint32_t*>(s_rec + (nt & 1) * kRecTile + tid * kRecRow) =
         record(low_r, low_r < st.low ? 1u : 0u, 16u);
   }
   __syncwarp();
-  bar_arrive(kBarFull + (nt & 1));
+  bar_arrive(bar + kBarFull + (nt & 1));
 }
 
 // The stream warp: turns the records into each lane's resolved bytes in
-// `out`, then writes nbytes and total.
+// `out`, then writes nbytes and total.  kAhead (the index form, where the
+// stream warp shares its scheduler with the producer): the record loads run
+// one step ahead, so that a put never waits on one.
+template <bool kAhead>
 __device__ __forceinline__ void stream_warp(
     unsigned char* s_rec, uint16_t* s_unsent, unsigned char* out,
-    int32_t* __restrict__ nbytes, int32_t* __restrict__ total, int tid,
-    int lane0, int rows, int n_valid, int nt, int Bp, int M) {
+    int32_t* __restrict__ nbytes, int32_t* __restrict__ total, int bar,
+    int tid, int lane0, int rows, int n_valid, int nt, int Bp, int M) {
   const bool owner = tid < rows;
   const int lane = lane0 + tid;
   StreamState s{0, 0u, 0u};
@@ -495,17 +576,23 @@ __device__ __forceinline__ void stream_warp(
   };
 
   for (int t = 0; t < nt; ++t) {
-    bar_sync(kBarFull + (t & 1));
+    bar_sync(bar + kBarFull + (t & 1));
     const int b0 = t * kTileBins;
     const int tw = min(kTileBins, Bp - b0);  // bins of this tile
     const unsigned char* rrow = s_rec + (t & 1) * kRecTile + tid * kRecRow;
     uint16_t* unsent0 = unsent - stored;
     const int from = s.pos;
+    uint4 r_next = kAhead ? *reinterpret_cast<const uint4*>(rrow)
+                          : make_uint4(0, 0, 0, 0);
     for (int w = 0; owner && w < tw / 32 && b0 + w * 32 < n_valid; ++w) {
 #pragma unroll
       for (int h = 0; h < 8; ++h) {  // 4 records a read
         const uint4 r =
-            *reinterpret_cast<const uint4*>(rrow + w * 128 + h * 16);
+            kAhead ? r_next
+                   : *reinterpret_cast<const uint4*>(rrow + w * 128 + h * 16);
+        if (kAhead)  // past the records in use, inside the row
+          r_next =
+              *reinterpret_cast<const uint4*>(rrow + w * 128 + h * 16 + 16);
         put(s, r.x, unsent0);
         put(s, r.y, unsent0);
         put(s, r.z, unsent0);
@@ -513,7 +600,7 @@ __device__ __forceinline__ void stream_warp(
       }
     }
     __syncwarp();
-    if (t + 2 <= nt) bar_arrive(kBarEmpty + (t & 1));  // the chain may refill
+    if (t + 2 <= nt) bar_arrive(bar + kBarEmpty + (t & 1));  // the chain may refill
     if (s.pos != from) {
       unsent[s.pos - 1 - stored] = static_cast<uint16_t>(s.held);
 #ifndef STREAMS_NO_SETTLE
@@ -532,7 +619,7 @@ __device__ __forceinline__ void stream_warp(
     }
   }
 
-  bar_sync(kBarFull + (nt & 1));
+  bar_sync(bar + kBarFull + (nt & 1));
   if (owner) {
     // the flush record: two bytes, the pending count onto the held byte
     const int from = s.pos;
@@ -565,10 +652,22 @@ __device__ __forceinline__ void stream_warp(
   }
 }
 
-template <bool kIdx>
-__global__ void __launch_bounds__(kMaxThreads)
-lane_encode_streams_kernel(const void* __restrict__ p1,
-                           const uint16_t* __restrict__ sq,
+// A lane's bins past its length are never read; a group codes as many
+// tiles as its longest lane has bins.
+__device__ __forceinline__ int valid_bins(const int32_t* __restrict__ lens,
+                                          int lane, bool owner, int Bp) {
+  const int n = owner ? lens[lane] : 0;
+  return n < 0 ? 0 : (n > Bp ? Bp : n);
+}
+
+__device__ __forceinline__ int tiles(int n_valid) {
+  return (__reduce_max_sync(kFull, n_valid) + kTileBins - 1) / kTileBins;
+}
+
+// The u16 form: a block of two warps for one lane group, the chain warp and
+// the stream warp, on two schedulers (two blocks an SM fill all four).
+__global__ void __launch_bounds__(kThreads)
+lane_encode_streams_kernel(const uint16_t* __restrict__ p1,
                            const uint32_t* __restrict__ bitw,
                            const int32_t* __restrict__ lens,
                            unsigned char* out, int32_t* __restrict__ nbytes,
@@ -578,52 +677,88 @@ lane_encode_streams_kernel(const void* __restrict__ p1,
   unsigned char* s_rec = smem + 2 * kP1Tile;   // two record tiles
   uint16_t* s_unsent = reinterpret_cast<uint16_t*>(smem + 2 * kP1Tile +
                                                  2 * kRecTile);
-  uint16_t* s_sq = reinterpret_cast<uint16_t*>(smem + kSmemBytes);
-  unsigned char* s_raw = smem + kSmemBytes + kSquashBytes;
-
   const int tid = threadIdx.x & 31;  // the lane's row in the block
   const int lane0 = blockIdx.x * kRows;
   const int rows = min(kRows, L - lane0);  // lanes this block owns
-  int n_valid = 0;
-  if (tid < rows) {
-    n_valid = lens[lane0 + tid];
-    n_valid = n_valid < 0 ? 0 : (n_valid > Bp ? Bp : n_valid);
-  }
-  // tiles of the block's longest lane; the bins past it are never read
-  const int nt =
-      (__reduce_max_sync(kFull, n_valid) + kTileBins - 1) / kTileBins;
-
-  if (kIdx) {  // the squash table, 16 bytes a thread and step
-    for (int k = threadIdx.x; k < kSquashBytes / 16; k += kMaxThreads)
-      reinterpret_cast<uint4*>(s_sq)[k] = reinterpret_cast<const uint4*>(sq)[k];
-    __syncthreads();
-  }
-  const int warp = threadIdx.x >> 5;
-  if (warp == 0)
-    chain_warp<kIdx>(static_cast<const uint16_t*>(p1), bitw, s_p1, s_rec, tid,
-                     lane0, rows, n_valid, nt, Bp);
-  else if (kIdx && warp == 1)
-    producer_warp(Producer{static_cast<const unsigned char*>(p1), s_sq, bitw,
-                           s_raw, s_p1, tid, lane0, rows, nt, Bp});
+  const int n_valid = valid_bins(lens, lane0 + tid, tid < rows, Bp);
+  const int nt = tiles(n_valid);
+  if (threadIdx.x < 32)
+    chain_warp<false>(p1, bitw, s_p1, s_rec, nullptr, 1, tid, lane0, rows,
+                      n_valid, nt, Bp);
   else
-    stream_warp(s_rec, s_unsent, out, nbytes, total, tid, lane0, rows, n_valid,
-                nt, Bp, M);
+    stream_warp<false>(s_rec, s_unsent, out, nbytes, total, 1, tid, lane0,
+                       rows, n_valid, nt, Bp, M);
 }
 
-template <bool kIdx>
-int launch(const void* p1, const void* sq, const void* bitw, const void* lens,
-           void* out, void* nbytes, void* total, int L, int Bp, int M,
-           void* stream) {
-  const int smem = kIdx ? kIdxSmemBytes : kSmemBytes;
+// The index form: a block of kG lane groups, 4 kG warps, one block an SM
+// (its shared memory), so that warp w runs on scheduler w % 4.  Roles by
+// warp index w: group w % kG; w / kG = 0 its chain warp, 1 its stream
+// warp, 2 none (the warp helps copy the squash table in and leaves), 3 its
+// producer.  kG = 2: the chain warps 0-1 each have a scheduler to
+// themselves, and each producer (6-7) shares one with its group's stream
+// warp (2-3); kG = 1: every warp is alone.  A group's warps hand records
+// and p1 tiles over under named barriers 1-6 (group 0) or 7-12 (group 1),
+// and the producer waits for a coded tile on the group's mbarriers.
+template <int kG>
+__global__ void __launch_bounds__(kG * 128)
+lane_encode_streams_idx_kernel(const unsigned char* __restrict__ pk,
+                               const uint16_t* __restrict__ sq,
+                               const uint32_t* __restrict__ bitw,
+                               const int32_t* __restrict__ lens,
+                               unsigned char* out,
+                               int32_t* __restrict__ nbytes,
+                               int32_t* __restrict__ total, int L, int Bp,
+                               int M) {
+  __shared__ __align__(16) uint16_t s_sq[4096];
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem);
+  // the squash table, 16 bytes a thread and step
+  for (int k = threadIdx.x; k < kSquashBytes / 16; k += kG * 128)
+    reinterpret_cast<uint4*>(s_sq)[k] = reinterpret_cast<const uint4*>(sq)[k];
+  // a group's P1EMPTY 0-1, each completed by the chain warp
+  if (threadIdx.x < kG * 2) mbar_init(s_bar + threadIdx.x, 32);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, role = warp / kG, g = warp % kG;
+  const int tid = threadIdx.x & 31;
+  const int lane0 = (blockIdx.x * kG + g) * kRows;
+  const int rows = min(kRows, L - lane0);  // lanes this group owns
+  if (role == 2 || rows <= 0) return;      // the last block's second group
+  const int n_valid = valid_bins(lens, lane0 + tid, tid < rows, Bp);
+  const int nt = tiles(n_valid);
+  unsigned char* s_p1 = smem + kBarBytes + g * kIdxGroupBytes;
+  unsigned char* s_rec = s_p1 + 2 * kP1Tile;
+  uint16_t* s_unsent = reinterpret_cast<uint16_t*>(s_rec + 2 * kRecTile);
+  uint64_t* p1empty = s_bar + 2 * g;
+  const int bar = 1 + kBarIds * g;
+  if (role == 0)
+    chain_warp<true>(nullptr, bitw, s_p1, s_rec, p1empty, bar, tid, lane0,
+                     rows, n_valid, nt, Bp);
+  else if (role == 1)
+    stream_warp<true>(s_rec, s_unsent, out, nbytes, total, bar, tid, lane0,
+                      rows, n_valid, nt, Bp, M);
+  else
+    producer_warp(Producer{pk, reinterpret_cast<const unsigned char*>(s_sq),
+                           bitw, s_p1 + kSmemBytes, s_p1, p1empty, bar, tid,
+                           lane0, rows, nt, Bp});
+}
+
+// kG = 1 asks for the same shared memory as kG = 2: one block an SM, every
+// warp on a scheduler of its own.
+template <int kG>
+int launch_idx(const void* p1pk, const void* sq, const void* bitw,
+               const void* lens, void* out, void* nbytes, void* total, int L,
+               int Bp, int M, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      lane_encode_streams_kernel<kIdx>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      lane_encode_streams_idx_kernel<kG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kIdxDynBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lane_encode_streams_kernel<kIdx>
-      <<<(L + kRows - 1) / kRows, kIdx ? kMaxThreads : kThreads, smem,
+  constexpr int kLanes = kG * kRows;
+  lane_encode_streams_idx_kernel<kG>
+      <<<(L + kLanes - 1) / kLanes, kG * 128, kIdxDynBytes,
          static_cast<cudaStream_t>(stream)>>>(
-          p1, static_cast<const uint16_t*>(sq),
-          static_cast<const uint32_t*>(bitw),
+          static_cast<const unsigned char*>(p1pk),
+          static_cast<const uint16_t*>(sq), static_cast<const uint32_t*>(bitw),
           static_cast<const int32_t*>(lens), static_cast<unsigned char*>(out),
           static_cast<int32_t*>(nbytes), static_cast<int32_t*>(total), L, Bp,
           M);
@@ -636,18 +771,35 @@ extern "C" int lane_encode_streams_launch(const void* p1, const void* bitw,
                                           const void* lens, void* out,
                                           void* nbytes, void* total, int L,
                                           int Bp, int M, void* stream) {
-  return launch<false>(p1, nullptr, bitw, lens, out, nbytes, total, L, Bp, M,
-                       stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      lane_encode_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lane_encode_streams_kernel<<<(L + kRows - 1) / kRows, kThreads, kSmemBytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(p1), static_cast<const uint32_t*>(bitw),
+      static_cast<const int32_t*>(lens), static_cast<unsigned char*>(out),
+      static_cast<int32_t*>(nbytes), static_cast<int32_t*>(total), L, Bp, M);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // p1pk: uint8 [L, 3 * Bp / 2] packed squash indices (16-byte aligned); sq:
-// the squash table, uint16 [4096] on the device (16-byte aligned)
+// the squash table, uint16 [4096] on the device (16-byte aligned).  One
+// lane group a block where every group gets an SM of its own, else two.
 extern "C" int lane_encode_streams_idx_launch(const void* p1pk, const void* sq,
                                               const void* bitw,
                                               const void* lens, void* out,
                                               void* nbytes, void* total,
                                               int L, int Bp, int M,
                                               void* stream) {
-  return launch<true>(p1pk, sq, bitw, lens, out, nbytes, total, L, Bp, M,
-                      stream);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return (L + kRows - 1) / kRows <= sms
+             ? launch_idx<1>(p1pk, sq, bitw, lens, out, nbytes, total, L, Bp,
+                             M, stream)
+             : launch_idx<2>(p1pk, sq, bitw, lens, out, nbytes, total, L, Bp,
+                             M, stream);
 }

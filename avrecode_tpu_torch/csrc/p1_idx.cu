@@ -37,7 +37,8 @@ unpack_p1_idx_kernel(const uint32_t* __restrict__ pk,
   for (long long g = blockIdx.x * static_cast<long long>(kThreads) +
                      threadIdx.x;
        g < n_groups; g += static_cast<long long>(gridDim.x) * kThreads)
-    p1[g] = unpack8_p1(pk[3 * g], pk[3 * g + 1], pk[3 * g + 2], s_sq);
+    p1[g] = unpack8_p1(pk[3 * g], pk[3 * g + 1], pk[3 * g + 2],
+                       reinterpret_cast<const unsigned char*>(s_sq));
 }
 
 }  // namespace

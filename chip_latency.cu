@@ -92,7 +92,11 @@ __global__ void where(int* out, long long spin) {
 
 // `./chip_latency where BLOCKS THREADS SMEM_BYTES`: how many blocks put
 // their warps on as many different schedulers as they have warps (up to 4),
-// and how many schedulers of each SM got a warp.
+// how many schedulers of each SM got a warp, and which warps share one: for
+// every pair of a block's warp indices (a, b), the schedulers that hold a
+// warp of index a and another of index b, of the same block or of another
+// block on the SM.  A kernel that gives its warps roles by index reads from
+// this which roles compete for a scheduler's issue slots.
 int where_report(int blocks, int threads, int smem) {
   const int warps = threads / 32, n = blocks * warps;
   int* d;
@@ -103,24 +107,39 @@ int where_report(int blocks, int threads, int smem) {
   if (cudaDeviceSynchronize() != cudaSuccess) return 1;
   int* h = new int[2 * n];
   cudaMemcpy(h, d, 8 * n, cudaMemcpyDeviceToHost);
-  int apart = 0, sms = 0, used[4] = {0, 0, 0, 0};
+  int apart = 0, sms = 0, used[4] = {0, 0, 0, 0}, most = 0;
   for (int b = 0; b < blocks; ++b) {
     int mask = 0;
     for (int w = 0; w < warps; ++w)
       mask |= 1 << (h[2 * (b * warps + w) + 1] & 3);
     apart += __builtin_popcount(mask) == (warps < 4 ? warps : 4);
   }
+  int* pairs = new int[warps * warps]();
   for (int sm = 0; sm < 1024; ++sm) {
-    int mask = 0;
+    int mask = 0, on_sm = 0;
     for (int w = 0; w < n; ++w)
-      if (h[2 * w] == sm) mask |= 1 << (h[2 * w + 1] & 3);
+      if (h[2 * w] == sm) mask |= 1 << (h[2 * w + 1] & 3), ++on_sm;
     if (mask) ++sms, ++used[__builtin_popcount(mask) - 1];
+    most = on_sm > most ? on_sm : most;
   }
+  for (int v = 0; v < n; ++v)  // the pairs of warps on one scheduler
+    for (int u = 0; u < n; ++u)
+      if (u != v && h[2 * v] == h[2 * u] &&
+          (h[2 * v + 1] & 3) == (h[2 * u + 1] & 3))
+        ++pairs[(v % warps) * warps + u % warps];
   printf("where %d blocks x %d threads, %d B shared: %d of %d blocks have "
-         "their warps on distinct schedulers; %d SMs used, with 1/2/3/4 "
-         "schedulers busy: %d/%d/%d/%d\n",
-         blocks, threads, smem, apart, blocks, sms, used[0], used[1], used[2],
-         used[3]);
+         "their warps on distinct schedulers; %d SMs used (at most %d warps "
+         "on one), with 1/2/3/4 schedulers busy: %d/%d/%d/%d\n",
+         blocks, threads, smem, apart, blocks, sms, most, used[0], used[1],
+         used[2], used[3]);
+  printf("warp index pairs sharing a scheduler (a: b x count):\n");
+  for (int a = 0; a < warps; ++a) {
+    printf("  warp %d:", a);
+    for (int b = 0; b < warps; ++b)
+      if (pairs[a * warps + b]) printf(" %d x %d", b, pairs[a * warps + b]);
+    printf("\n");
+  }
+  delete[] pairs;
   delete[] h;
   cudaFree(d);
   return 0;

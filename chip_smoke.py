@@ -21,7 +21,10 @@ Phases; any failure raises and the script exits non-zero:
              257 and 4096, runs of 0xFF longer than the kernel's staging
              ring with one carry through them into position 0, lens of 0,
              1 and B, 1, 15, 17 and 1,000 lanes, bits_per_byte of 1, 4 and
-             1000.  Then the index form: lane_encode_streams_idx vs
+             1000, lane counts on the edges of both kernels' blocks (the
+             index kernel's one or two lane groups, 4,224 lanes where it
+             changes on 132 SMs), one long lane in every 64 among short
+             ones.  Then the index form: lane_encode_streams_idx vs
              lane_encode_streams_idx_plain and vs lane_encode_streams on
              the same lanes, on those cases with p1 on the squash table's
              image (every index 0-4095 among the valid bins of the larger
@@ -299,7 +302,9 @@ def lanes(kind, L, B, seed):
     (runs of 0xFF as long as the stream, one carry through each).
     "edges": p1 of 1, 2, 0xFFFE or 0xFFFF on half of the bins, random on
     the rest, and every lane ends on a 128-bin tile edge (0 and B among
-    them)."""
+    them).  "onelong": random, every lane at most one tile long but one in
+    each 64 (the index kernel's block), at a place that moves from block
+    to block, which has all B bins."""
     rng = np.random.default_rng(seed)
     if kind == "edges":
         p1 = rng.integers(1, 1 << 16, (L, B), dtype=np.int32)
@@ -307,7 +312,7 @@ def lanes(kind, L, B, seed):
         pick = rng.random((L, B), dtype=np.float32) < 0.5
         p1[pick] = ends[rng.integers(0, 4, int(pick.sum()))]
         bits = rng.random((L, B), dtype=np.float32) * 65536 < p1
-    elif kind in ("random", "zero"):
+    elif kind in ("random", "zero", "onelong"):
         p1 = rng.integers(1, 1 << 16, (L, B), dtype=np.int32)
         bits = rng.random((L, B), dtype=np.float32) * 65536 < p1
         if kind == "zero":
@@ -326,6 +331,10 @@ def lanes(kind, L, B, seed):
     if kind == "edges":
         lens = rng.integers(0, B // 128 + 1, L).astype(np.int32) * 128
         lens[:2] = [0, B][:L]
+    if kind == "onelong":
+        lens = rng.integers(0, min(B, 128) + 1, L).astype(np.int32)
+        for b0 in range(0, L, 64):
+            lens[b0 + (b0 // 64 * 37) % min(64, L - b0)] = B
     bitw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
     return p1.astype(np.uint16), bitw, lens
 
@@ -448,6 +457,18 @@ STREAM_CASES = [
     # one short of the full group; lanes ending on tile edges, p1 at its ends
     ("random", 8191, 256, None, 4), ("edges", 1, 4096, None, 4),
     ("edges", 31, 4096, None, 4), ("edges", 33, 1024, None, 1),
+    # the index kernel's blocks: one lane group a block while the groups fit
+    # one an SM (4,224 lanes on 132 SMs), else two (64 lanes): counts about
+    # 64 and 128 on the first shape; the last count of the first, the first
+    # of the second (a block with one lane, its second group empty), one
+    # short of 68 blocks (its last group 31 lanes), one past the full group;
+    # one long lane in every 64 among short ones, on both shapes
+    ("random", 63, 256, None, 4), ("random", 64, 288, None, 4),
+    ("random", 65, 160, None, 4), ("random", 127, 128, None, 1),
+    ("random", 129, 256, None, 4), ("random", 4224, 128, None, 4),
+    ("random", 4225, 128, None, 1), ("random", 4351, 160, None, 4),
+    ("random", 8193, 128, None, 4), ("onelong", 200, 4096, None, 4),
+    ("onelong", 129, 2048, None, 1), ("onelong", 4300, 512, None, 4),
 ]
 LONE_LANE = 32768  # bins of the longest lane the lane coders take (MAX_B)
 LONE_UNIT = 64096  # bins of the longest pinned v1 unit (mbaff_b.mkv, gop)

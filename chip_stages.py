@@ -30,7 +30,11 @@ copy overlaps a kernel).  Not a benchmark: no spread, small pinned clips.
   corpus     device_compress_corpus on the seven pinned clips at B = 4096
              and 16384, containers/s, in the index form (the package) and in
              the u16 form (its packer replaced by split_lanes_recs, the
-             packer before the index form), in turns
+             packer before the index form), in turns; each call split into
+             the host time spent in extract_traces (on the worker thread,
+             beside the rest), pack_lanes, lane_dispatch_compact (upload and
+             launch) and lane_collect (the wait for the card and the
+             read-back), medians over the calls
   decode     device_decompress(blob) on containers of rt_ctr.mkv and
              mbaff_b.mkv at gop scope, v2 (B = 4096) and v1: host model
              pass, pack, upload, kernel, read-back, split, host assembly
@@ -261,9 +265,25 @@ def lane_pack_stage(dev):
     del owners
 
 
+CORPUS_STAGES = ("extract_traces", "pack_lanes", "lane_dispatch_compact",
+                 "lane_collect")
+
+
+def timed(fn, spent, name):
+    """fn, adding the host time of each call to spent[name]."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+    return run
+
+
 def corpus_forms(dev):
     """device_compress_corpus on the pinned clips in both upload forms, in
-    turns (index, u16, u16, index, ...): containers/s on the host clock."""
+    turns (index, u16, u16, index, ...): containers/s on the host clock, and
+    each call's host time by stage (CORPUS_STAGES, wrapped in timers)."""
     datas = []
     for c in MAIN_CLIPS:
         with open(os.path.join(ROOT, "data", c), "rb") as f:
@@ -271,9 +291,15 @@ def corpus_forms(dev):
     for B in (4096, 16384):
         want = None
         times = {"index": [], "u16": []}
+        spent = {"index": [], "u16": []}
         for form in ("index", "u16", "u16", "index") * 5:
-            if form == "u16":  # the packer before the index form
-                pipeline.pack_lanes = tlc.split_lanes_recs
+            saved = {n: getattr(pipeline, n) for n in CORPUS_STAGES}
+            stage = {}
+            for n in CORPUS_STAGES:
+                fn = saved[n]
+                if n == "pack_lanes" and form == "u16":
+                    fn = tlc.split_lanes_recs  # the packer before the index form
+                setattr(pipeline, n, timed(fn, stage, n))
             try:
                 before = tlc.lane_encode_streams_idx.launches
                 torch.cuda.synchronize()
@@ -283,7 +309,9 @@ def corpus_forms(dev):
                 times[form].append(time.perf_counter() - t0)
                 took_idx = tlc.lane_encode_streams_idx.launches > before
             finally:
-                pipeline.pack_lanes = tlc.pack_lanes
+                for n, fn in saved.items():
+                    setattr(pipeline, n, fn)
+            spent[form].append(stage)
             if took_idx != (form == "index") or (want and outs != want):
                 raise RuntimeError(f"corpus {form} form: wrong form or "
                                    f"containers")
@@ -294,6 +322,11 @@ def corpus_forms(dev):
                         + f", median {np.median(ts):.4f} = "
                         f"{len(datas) / np.median(ts):.2f} containers/s"
                         for form, ts in times.items()))
+        log(f"corpus B={B}, host ms a call by stage, median of "
+            f"{len(times['index'])}: "
+            + "; ".join(f"{form} form " + ", ".join(
+                f"{n} {np.median([c.get(n, 0.0) for c in calls]) * 1e3:.2f}"
+                for n in CORPUS_STAGES) for form, calls in spent.items()))
 
 
 def lane_transfer_parts(dev):

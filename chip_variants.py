@@ -6,10 +6,10 @@ package, on one GPU.
 
 A variant is any source with the launcher of the kernel it varies:
 `lane_encode_launch`, `lane_encode_streams_launch`,
-`lane_encode_streams_idx_launch`, `est_encode_launch` or
-`lane_decode_launch`, with the signature of avrecode_tpu_torch/csrc (which
-of the five is read from NAME: it starts with "lane", "streams", "idx",
-"est" or "decode").  Every variant is built with nvcc (sm_90a), all at
+`lane_encode_streams_idx_launch`, `unpack_p1_idx_launch`,
+`est_encode_launch` or `lane_decode_launch`, with the signature of
+avrecode_tpu_torch/csrc (which of the six is read from NAME: it starts with
+"lane", "streams", "idx", "unpack", "est" or "decode").  Every variant is built with nvcc (sm_90a), all at
 once; its outputs are held against the package's kernel on the same
 tensors (exact), and both are timed with CUDA events, two windows each.  A
 variant whose NAME holds "ablate" is one with a piece taken out on purpose
@@ -28,14 +28,17 @@ timed, and its wrong output is reported but not refused.
         the package's index launcher; the `streams` kernels also run on the
         u16 form of these very lanes (their indices unpacked), so that
         both forms are timed, and held equal, on one set of lanes
+  unpack  the idx lanes through unpack_p1_idx alone (exact p1)
   est   the clips' longest slice trace alone and 128 times, and the clips'
         slice traces replicated to 1,024
   decode  the streams of that full dispatch group and of its first 55
         lanes, 1,000 ragged lanes of random bytes, and one lane of 64,096
         bins from the host encoder
 
-With no arguments it times the package's kernels alone.  This is a tool for
-kernel work, not a benchmark: one card, no spread.
+With no arguments it times the package's kernels alone; with variants it
+runs only the kinds they vary (an `idx` run also times the `streams`
+kernels on its lanes' u16 form).  This is a tool for kernel work, not a
+benchmark: one card, no spread.
 """
 
 import ctypes
@@ -127,6 +130,22 @@ def idx_runner(lib):
     return run
 
 
+def unpack_runner(lib):
+    lib.unpack_p1_idx_launch.argtypes = [PTR] * 3 + [ctypes.c_longlong, PTR]
+    lib.unpack_p1_idx_launch.restype = ctypes.c_int
+
+    def run(prob, out):
+        pk = prob[0]
+        err = lib.unpack_p1_idx_launch(
+            pk.data_ptr(), tlc._squash_on(pk.device).data_ptr(),
+            out[0].data_ptr(), pk.shape[0] * tlc.lane_bins(pk) // 8,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"unpack_p1_idx_launch: cudaError {err}")
+
+    return run
+
+
 def streams_equal(out, ref):
     """Two (out, nbytes, total): equal where the bytes are specified."""
     return streams_diff(out, ref, out[0].shape[1]) == 0
@@ -204,14 +223,33 @@ def main(argv):
     variants = {"lane_package": (os.path.join(csrc, "lane_encode.cu"), []),
                 "streams_package": (os.path.join(csrc, "lane_streams.cu"), []),
                 "idx_package": (os.path.join(csrc, "lane_streams.cu"), []),
+                "unpack_package": (os.path.join(csrc, "p1_idx.cu"), []),
                 "est_package": (os.path.join(csrc, "est_encode.cu"), []),
                 "decode_package": (os.path.join(csrc, "lane_decode.cu"), [])}
+    every = ("lane", "streams", "idx", "unpack", "est", "decode")
+    kinds = set(every)
+    if argv:
+        kinds = set()
     for arg in argv:
         name, spec = arg.split("=", 1)
         src, *flags = spec.split(",")
         variants[name] = (src, flags)
+        kinds.add(next(k for k in every if name.startswith(k)))
+    variants = {n: v for n, v in variants.items()
+                if any(n.startswith(k) for k in kinds)
+                or (n.startswith("streams") and "idx" in kinds)}
     libs = build_all(variants)
+    if kinds & {"lane", "streams"}:
+        lane_and_streams(libs, dev, kinds)
+    if kinds & {"idx", "unpack"}:
+        idx_kind(libs, dev, kinds)
+    if "decode" in kinds:
+        decode_kind(libs, dev)
+    if "est" in kinds:
+        est_kind(libs, dev)
 
+
+def lane_and_streams(libs, dev, kinds):
     lane = {n: lane_runner(lib) for n, lib in libs.items() if n.startswith("lane")}
     full = tiled_problem(CLIPS, 8192, 16384)
     problems = {
@@ -228,22 +266,28 @@ def main(argv):
                 torch.empty(L, dtype=torch.int32, device=dev),
                 torch.empty(L, dtype=torch.int32, device=dev))
 
-    compare("lane", problems, lane, lane_out, lambda p: p[0].shape[1])
+    if "lane" in kinds:
+        compare("lane", problems, lane, lane_out, lambda p: p[0].shape[1])
 
     fused = {n: streams_runner(lib) for n, lib in libs.items()
              if n.startswith("streams")}
+    if "streams" in kinds:
+        compare("streams", problems, fused, streams_out,
+                lambda p: p[0].shape[1], same=streams_equal)
 
-    def streams_out(prob):
-        L, Bp = prob[0].shape[0], tlc.lane_bins(prob[0])
-        M = tlc.max_bytes(Bp, 4 if Bp == 16384 else 1)
-        return (torch.zeros((L, M), dtype=torch.uint8, device=dev),
-                torch.empty(L, dtype=torch.int32, device=dev),
-                torch.empty(L, dtype=torch.int32, device=dev))
 
-    compare("streams", problems, fused, streams_out, lambda p: p[0].shape[1],
-            same=streams_equal)
-    del problems
+def streams_out(prob):
+    L, Bp = prob[0].shape[0], tlc.lane_bins(prob[0])
+    M = tlc.max_bytes(Bp, 4 if Bp == 16384 else 1)
+    dev = prob[0].device
+    return (torch.zeros((L, M), dtype=torch.uint8, device=dev),
+            torch.empty(L, dtype=torch.int32, device=dev),
+            torch.empty(L, dtype=torch.int32, device=dev))
 
+
+def idx_kind(libs, dev, kinds):
+    fused = {n: streams_runner(lib) for n, lib in libs.items()
+             if n.startswith("streams")}
     # an index problem carries its lanes' u16 form as a fourth tensor: the
     # streams kernels run on (p1, bitw, lens) of the very same lanes
     idx = {n: idx_runner(lib) for n, lib in libs.items() if n.startswith("idx")}
@@ -265,12 +309,22 @@ def main(argv):
     }
     del pk, bitw, lens
 
-    compare("idx", problems, idx, streams_out, lambda p: tlc.lane_bins(p[0]),
-            same=streams_equal)
-    del problems
+    if "idx" in kinds:
+        compare("idx", problems, idx, streams_out,
+                lambda p: tlc.lane_bins(p[0]), same=streams_equal)
+    if "unpack" in kinds:
+        unpack = {n: unpack_runner(lib) for n, lib in libs.items()
+                  if n.startswith("unpack")}
+        compare("unpack", problems, unpack,
+                lambda p: (torch.empty(p[3].shape, dtype=torch.uint16,
+                                       device=dev),),
+                lambda p: tlc.lane_bins(p[0]))
 
+
+def decode_kind(libs, dev):
     decode = {n: decode_runner(lib) for n, lib in libs.items()
               if n.startswith("decode")}
+    full = tiled_problem(CLIPS, 8192, 16384)
     streams = tlc.lane_streams_device_compact(*full, dev)
     problems = {
         "[8192, 16384]": tld.from_numpy_problem(
@@ -287,8 +341,9 @@ def main(argv):
         return (torch.empty((L, Bp // 32), dtype=torch.int32, device=dev),)
 
     compare("decode", problems, decode, decode_out, lambda p: p[2].shape[1])
-    del problems, full, streams
 
+
+def est_kind(libs, dev):
     est = {n: est_runner(lib) for n, lib in libs.items() if n.startswith("est")}
     traces = []
     for clip in CLIPS:

@@ -64,8 +64,11 @@ def test_kernel_matches_plain(cuda, kind, L, B):
 
 # chip_smoke's cases of the fused kernel: carry stress, runs of 0xFF longer
 # than the kernel's ring with a carry through them into position 0, lens of
-# 0, 1 and B, lane counts off a block's 32 (1, 31, 33, 8,191), lanes that
-# end on a tile edge, p1 at its ends, bounds that lanes run past
+# 0, 1 and B, lane counts off a lane group's 32 (1, 31, 33, 8,191), off the
+# index kernel's two block shapes and where it changes from one to the
+# other (63, 64, 65, 127, 129, 4,224, 4,225, 4,351, 8,193), one long lane
+# in every 64 among short ones, lanes that end on a tile edge, p1 at its
+# ends, bounds that lanes run past
 @pytest.mark.parametrize("kind, L, B, cut, bits_per_byte", STREAM_CASES)
 def test_streams_kernel_matches_plain(cuda, kind, L, B, cut, bits_per_byte):
     p1u16, bitw, lens = _problem(kind, L, B, seed=L + B)

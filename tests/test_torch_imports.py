@@ -27,7 +27,7 @@ MODULES = [
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "avrecode_tpu")
 # the port's scripts outside the package: (module name, path)
 SCRIPTS = [(f"chip_{n}", os.path.join(ROOT, f"chip_{n}.py"))
-           for n in ("smoke", "stages", "variants")]
+           for n in ("smoke", "stages", "variants", "sass", "probe")]
 SCRIPTS.append(("tools.gpu_verify", os.path.join(ROOT, "tools", "gpu_verify.py")))
 
 

@@ -207,7 +207,8 @@ def _clip_problem(B=512, rows=12):
 
 
 @pytest.mark.parametrize("bits_per_byte", [1, 4, 1000])
-@pytest.mark.parametrize("kind", ["random", "carry", "ffrun", "clip"])
+@pytest.mark.parametrize("kind", ["random", "carry", "ffrun", "onelong",
+                                  "clip"])
 def test_streams_idx_matches_jax_idx_pipeline(needs_native, kind,
                                               bits_per_byte):
     """lane_encode_streams_idx on the CPU against the JAX package's
