@@ -105,6 +105,13 @@ Phases; any failure raises and the script exits non-zero:
              its kernel
   14 cli     python -m avrecode_tpu_torch roundtrip, then compress with
              --hosts 2 and decompress: exit codes 0, bytes equal
+  15 bench   python -m avrecode_tpu_torch.bench --device-corpus on the
+             pinned clips and conformance streams, repeated until the
+             corpus passes two full dispatch groups at the bench's B:
+             every container roundtrips, the CUDA lane kernel coded it,
+             three or more dispatches, the fused kernel launched once a
+             dispatch in every pass, the card named; prints the bench's
+             line (its per-file entries counted, not listed)
 The last three lines are a JSON line of kernel numbers, the card's name
 and power limit, and {"ok": true, "device": {...}}.  A kernel's `launches`
 there is the sum over the main paths that run it (`launches_by_path`), each
@@ -122,7 +129,7 @@ import time
 import numpy as np
 import torch
 
-from avrecode_tpu_torch import codec, graft_entry
+from avrecode_tpu_torch import bench, codec, graft_entry
 from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.ops import _build
 from avrecode_tpu_torch.ops import est_coder as tec
@@ -185,6 +192,10 @@ EST_OPS_PER_BIN = 150  # of one est_encode bin
 DECODE_CHAIN_CYCLES = 53
 SM_CLOCK_HZ = 1.98e9
 MAIN_CLIPS = CLIPS + ["cavlc_ipp.mkv"]  # phase 4: a CAVLC stream too
+# phase 15: every pinned clip and conformance stream, repeated
+BENCH_SET = MAIN_CLIPS + ["rt_ctr.mp4"] + [n for n, _ in bench.CONFORMANCE]
+BENCH_GROUPS = 2  # full dispatch groups the phase-15 corpus passes
+BENCH_TIMEOUT_S = 420
 MESH_SHARDS = (1, 2, 4, 7)  # shard counts of phase 12 on one card
 MESH_FULL = 4  # shards of the full group, and of the est path
 MESH_B = 4096
@@ -1761,6 +1772,44 @@ def phase_cli():
         f"bytes), decompressed bytes equal to the input ({len(back)})")
 
 
+def phase_bench():
+    """The port's corpus driver, as a user starts its device section, over
+    more than BENCH_GROUPS full dispatch groups of real traces."""
+    paths = [os.path.join(ROOT, "data", n) for n in BENCH_SET]
+    rows = 0
+    for p in paths:
+        traces = extract_traces(open(p, "rb").read(), scope="gop",
+                                want_slots=False)[3]
+        rows += tlc.pack_lanes(traces, bench.CORPUS_B)[0].shape[0]
+    copies = BENCH_GROUPS * tlc.GROUP_ROWS // rows + 1
+    corpus = paths * copies
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "avrecode_tpu_torch.bench", "--device-corpus",
+         *corpus], cwd=ROOT, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    lines = [l for l in res.stdout.splitlines() if l.startswith("{")]
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"bench --device-corpus: exit code "
+                             f"{res.returncode}\n{res.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    files = line.pop("files")
+    log(f"bench: {len(corpus)} files ({copies} copies of {len(paths)}, "
+        f"{rows} lane rows a copy at B={bench.CORPUS_B}) in "
+        f"{time.time() - t0:.1f} s, {sum(f['roundtrip'] == 'OK' for f in files)}"
+        f" roundtrip OK; per file: "
+        f"{ {f['file']: f['ratio_pct'] for f in files[:len(paths)]} }")
+    log("bench stderr: " + " | ".join(
+        l for l in res.stderr.splitlines() if l.startswith("device corpus")))
+    line["files"] = len(files)
+    print(json.dumps(line), flush=True)
+    if (line["roundtrip_failures"] != 0 or len(files) != len(corpus)
+            or line["kernel"] != "cuda-lane" or line["dispatches"] < 3
+            or min(line["kernel_launches"]) < line["dispatches"]
+            or not line["device_name"] or not line["power_limit"]):
+        raise AssertionError(f"bench: the line fails its checks: {line}")
+
+
 def main():
     # 1 device
     if not torch.cuda.is_available():
@@ -1878,6 +1927,10 @@ def main():
     # 14 the command line
     phase_cli()
     clock.mark("14 command line")
+
+    # 15 the corpus driver over several full dispatch groups
+    phase_bench()
+    clock.mark("15 bench")
 
     lane_paths = {"entry": entry_lane,
                   "overflow_fallback": overflow["lane_encode"],
