@@ -1,0 +1,239 @@
+// TSan driver for the threaded native paths of the port's host library
+// (build: `make -C avrecode_tpu_torch/host tsan_driver`, into
+// build/torch_host/; run: `tsan_driver <packs.bin> <clip> <clip> <clip>...`).
+//
+// Exercises everything that spawns threads in libavtpu under
+// -fsanitize=thread:
+//   - avtpu_compress_mt     (parallel GOP compression, gop scope), equal to
+//                           serial, and two serial calls on two threads
+//   - avtpu_decompress_mt   (parallel GOP decompression), equal to the input
+//   - avtpu_xopen           (parallel GOP trace extraction)
+//   - avtpu_lane_pack       (up to 16 threads over the lane rows, two passes
+//                           sharing an atomic flag), at a B small enough for
+//                           several threads and at B = 4096, and again with
+//                           one p1 moved off the squash image so that the
+//                           second (u16) pass runs
+//   - the corpus overlap of parallel/pipeline.py::device_compress_corpus: a
+//     std::thread extracts clip k + 1 with threads while this thread packs
+//     clip k's records, over every clip in turn.
+// Every pack prints its rows and threads and appends its output to
+// <packs.bin> (see pack), which the test compares with the Python
+// packers.  Exit 0 = clean; TSan reports make the process exit non-zero
+// through TSAN_OPTIONS=exitcode (set by the test).
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+extern "C" {
+size_t avtpu_compress_mt(const uint8_t*, size_t, int, int, uint8_t**);
+size_t avtpu_decompress_mt(const uint8_t*, size_t, int, uint8_t**);
+void* avtpu_xopen(const uint8_t*, size_t, int, int, int, const uint8_t**,
+                  size_t*, size_t*);
+void avtpu_xtrace(void*, size_t, const uint64_t**, size_t*, const uint8_t**,
+                  const uint8_t**, size_t*);
+void avtpu_xclose(void*);
+void avtpu_free(uint8_t*);
+int avtpu_lane_pack(const uint64_t* const*, const int64_t*, const int64_t*,
+                    int, int, int, int64_t, uint8_t*, uint16_t*, int32_t*,
+                    int32_t*);
+int avtpu_lane_pack_threads(int64_t);
+}
+
+namespace {
+
+const int kScopeSlice = 1, kScopeGop = 2, kThreads = 3;
+const int kSmallB = 64, kLargeB = 4096;
+const uint64_t kForeignP1 = 2;  // under the squash image's least value, 22
+
+std::vector<uint8_t> slurp(const char* path) {
+  FILE* f = fopen(path, "rb");
+  if (!f) {
+    perror(path);
+    exit(2);
+  }
+  fseek(f, 0, SEEK_END);
+  long n = ftell(f);
+  fseek(f, 0, SEEK_SET);
+  std::vector<uint8_t> b(n);
+  if (fread(b.data(), 1, n, f) != (size_t)n) exit(2);
+  fclose(f);
+  return b;
+}
+
+void fail(const char* what, const char* clip) {
+  fprintf(stderr, "FAIL: %s (%s)\n", what, clip);
+  exit(1);
+}
+
+std::vector<uint8_t> compress(const std::vector<uint8_t>& in, int scope,
+                              int threads) {
+  uint8_t* out = nullptr;
+  size_t n = avtpu_compress_mt(in.data(), in.size(), scope, threads, &out);
+  std::vector<uint8_t> v(out, out + n);
+  avtpu_free(out);
+  return v;
+}
+
+// threaded compress (gop scope) equal to serial; threaded decompress equal
+// to the input; threaded extraction with every trace buffer touched
+void threaded_codec(const std::vector<uint8_t>& in, const char* clip) {
+  std::vector<uint8_t> mt = compress(in, kScopeGop, kThreads);
+  if (mt.empty() || mt != compress(in, kScopeGop, 1))
+    fail("mt compress != serial compress", clip);
+  uint8_t* dec = nullptr;
+  size_t dec_n = avtpu_decompress_mt(mt.data(), mt.size(), kThreads, &dec);
+  if (dec_n != in.size() || memcmp(dec, in.data(), dec_n) != 0)
+    fail("mt decompress mismatch", clip);
+  avtpu_free(dec);
+
+  const uint8_t* meta = nullptr;
+  size_t meta_len = 0, n_traces = 0;
+  void* h = avtpu_xopen(in.data(), in.size(), kScopeGop, kThreads, 1, &meta,
+                        &meta_len, &n_traces);
+  if (!h) fail("xopen returned null", clip);
+  uint64_t sum = 0;
+  for (size_t i = 0; i < n_traces; i++) {
+    const uint64_t* recs = nullptr;
+    const uint8_t *limits = nullptr, *cls = nullptr;
+    size_t n = 0, n_slots = 0;
+    avtpu_xtrace(h, i, &recs, &n, &limits, &cls, &n_slots);
+    for (size_t j = 0; j < n; j++) sum += recs[j];
+    for (size_t j = 0; j < n_slots; j++) sum += limits[j] + cls[j];
+  }
+  avtpu_xclose(h);
+  printf("codec %s traces=%zu checksum=%016llx\n", clip, n_traces,
+         (unsigned long long)sum);
+}
+
+struct Extracted {
+  void* handle = nullptr;
+  std::vector<const uint64_t*> recs;
+  std::vector<int64_t> n;
+};
+
+// gop-scope extraction without the slot remap, as device_compress_corpus
+// calls it (threads 0 = one job a core)
+Extracted extract(const std::vector<uint8_t>& in) {
+  Extracted x;
+  const uint8_t* meta = nullptr;
+  size_t meta_len = 0, n_traces = 0;
+  x.handle = avtpu_xopen(in.data(), in.size(), kScopeGop, 0, 0, &meta,
+                         &meta_len, &n_traces);
+  for (size_t i = 0; x.handle && i < n_traces; i++) {
+    const uint64_t* recs = nullptr;
+    const uint8_t *limits = nullptr, *cls = nullptr;
+    size_t n = 0, n_slots = 0;
+    avtpu_xtrace(x.handle, i, &recs, &n, &limits, &cls, &n_slots);
+    x.recs.push_back(recs);
+    x.n.push_back((int64_t)n);
+  }
+  return x;
+}
+
+// one avtpu_lane_pack call over the traces, the lanes laid out as
+// host/native.py::lane_pack lays them out.  Appends to `out` ten int64
+// (clip, variant, B, Bp, L, form, threads, moved trace, moved record, 0),
+// then bitw int32 [L, Bp / 32], lens int32 [L] and pk uint8
+// [L, 3 * Bp / 2] (form 1) or p1 uint16 [L, Bp] (form 0).
+void pack(FILE* out, int clip, int variant, const std::vector<const uint64_t*>& recs,
+          const std::vector<int64_t>& n, int B, int64_t moved_t,
+          int64_t moved_r) {
+  const int Bp = (B + 255) / 256 * 256;
+  std::vector<int64_t> lane0(n.size());
+  int64_t L = 0;
+  for (size_t t = 0; t < n.size(); t++) {
+    lane0[t] = L;
+    L += std::max<int64_t>(1, (n[t] + B - 1) / B);
+  }
+  std::vector<uint8_t> pk((size_t)L * 3 * Bp / 2);
+  std::vector<uint16_t> p1((size_t)L * Bp);
+  std::vector<int32_t> bitw((size_t)L * Bp / 32), lens((size_t)L);
+  const int form =
+      avtpu_lane_pack(recs.data(), n.data(), lane0.data(), (int)n.size(), B,
+                      Bp, L, pk.data(), p1.data(), bitw.data(), lens.data());
+  const int threads = avtpu_lane_pack_threads(L);
+  printf("pack clip=%d variant=%d B=%d rows=%lld threads=%d form=%d\n", clip,
+         variant, B, (long long)L, threads, form);
+  if (form < 0) {
+    fprintf(stderr, "FAIL: lane_pack refused its shapes\n");
+    exit(1);
+  }
+  const int64_t head[10] = {clip, variant, B,       Bp,      L,
+                            form, threads, moved_t, moved_r, 0};
+  fwrite(head, sizeof head, 1, out);
+  fwrite(bitw.data(), sizeof(int32_t), bitw.size(), out);
+  fwrite(lens.data(), sizeof(int32_t), lens.size(), out);
+  if (form)
+    fwrite(pk.data(), 1, pk.size(), out);
+  else
+    fwrite(p1.data(), sizeof(uint16_t), p1.size(), out);
+}
+
+// the packs of one clip's records: as extracted at both B, then with the
+// middle record of the first non-empty trace moved off the squash image
+void pack_clip(FILE* out, int clip, const Extracted& x) {
+  pack(out, clip, 0, x.recs, x.n, kSmallB, -1, -1);
+  pack(out, clip, 0, x.recs, x.n, kLargeB, -1, -1);
+  size_t t = 0;
+  while (t < x.n.size() && !x.n[t]) t++;
+  if (t == x.n.size()) return;
+  std::vector<uint64_t> copy(x.recs[t], x.recs[t] + x.n[t]);
+  const int64_t r = x.n[t] / 2;
+  copy[r] = (copy[r] & ((1ull << 48) - 1)) | kForeignP1 << 48;
+  std::vector<const uint64_t*> recs = x.recs;
+  recs[t] = copy.data();
+  pack(out, clip, 1, recs, x.n, kSmallB, (int64_t)t, r);
+}
+
+}  // namespace
+
+int main(int argc, char** argv) {
+  if (argc < 5) {
+    fprintf(stderr, "usage: %s <packs.bin> <clip> <clip> <clip>...\n",
+            argv[0]);
+    return 2;
+  }
+  const int n_clips = argc - 2;
+  std::vector<std::vector<uint8_t>> in;
+  for (int k = 0; k < n_clips; k++) in.push_back(slurp(argv[2 + k]));
+  for (int k = 0; k < n_clips; k++) threaded_codec(in[k], argv[2 + k]);
+
+  // two serial compress calls at once (a caller's threads, the GIL
+  // released), each equal to the same call made alone
+  {
+    std::vector<uint8_t> want0 = compress(in[0], kScopeSlice, 1);
+    std::vector<uint8_t> want1 = compress(in[1], kScopeSlice, 1);
+    std::vector<uint8_t> got1;
+    std::thread other([&] { got1 = compress(in[1], kScopeSlice, 1); });
+    std::vector<uint8_t> got0 = compress(in[0], kScopeSlice, 1);
+    other.join();
+    if (got0 != want0 || got1 != want1)
+      fail("concurrent compress calls differ from serial", argv[2]);
+  }
+
+  // the corpus overlap: extract clip k + 1 on a thread while clip k packs
+  FILE* out = fopen(argv[1], "wb");
+  if (!out) {
+    perror(argv[1]);
+    return 2;
+  }
+  Extracted cur = extract(in[0]);
+  for (int k = 0; k < n_clips; k++) {
+    if (!cur.handle) fail("xopen returned null", argv[2 + k]);
+    Extracted next;
+    std::thread ahead;
+    if (k + 1 < n_clips) ahead = std::thread([&] { next = extract(in[k + 1]); });
+    pack_clip(out, k, cur);
+    if (ahead.joinable()) ahead.join();
+    avtpu_xclose(cur.handle);
+    cur = next;
+  }
+  fclose(out);
+  printf("OK clips=%d\n", n_clips);
+  return 0;
+}

@@ -44,14 +44,76 @@ def _cpu_flags():
     return f"{platform.machine()} {flags}"
 
 
+def _source_key(dirs):
+    """A hash of the Makefile, the files of `dirs` and the host CPU's
+    flags."""
+    h = hashlib.sha256(_cpu_flags().encode())
+    files = [_HOST / "Makefile"]
+    for d in dirs:
+        files += sorted((_HOST / d).iterdir())
+    for src in files:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def library_path():
     """Where the library for the current sources and this host's CPU is
     built."""
-    h = hashlib.sha256(_cpu_flags().encode())
-    for src in [_HOST / "Makefile", *sorted((_HOST / "src").iterdir())]:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libavtpu_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libavtpu_{_source_key(['src'])}.so"
+
+
+# make targets of host/Makefile besides the library -> the file each builds
+TARGETS = {
+    "libavtpu_asan.so": "libavtpu_asan.so",
+    "libavtpu_tsan.so": "libavtpu_tsan.so",
+    "tsan_driver": "tsan_driver",
+    "fuzz": "fuzz_harness",
+    "prof": "prof_driver",
+}
+
+
+def _locked_build(dest, cmd, what):
+    """Run `cmd` (which writes the temporary path it is given) under the
+    build lock unless `dest` exists, then rename the result into place.
+    Raises with the compiler's output when the build fails."""
+    if dest.exists():
+        return dest
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if dest.exists():  # built while this process waited
+            return dest
+        tmp = dest.with_name(f"{dest.name}.{os.getpid()}.tmp")
+        res = subprocess.run(cmd(tmp), capture_output=True, text=True)
+        if res.returncode != 0:
+            if tmp.is_dir():
+                shutil.rmtree(tmp)
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"{what} build failed ({res.returncode}): "
+                f"{' '.join(cmd(tmp))}\n{res.stdout}{res.stderr}"
+            )
+        os.replace(tmp, dest)
+    return dest
+
+
+def build_target(target):
+    """Build one of host/Makefile's debug, profiling or sanitizer targets
+    (TARGETS) at first use and return the path of what it builds.  The
+    build goes into a directory of build/torch_host/ keyed on the
+    Makefile, the library's sources and the drivers, so an edited source
+    rebuilds; several processes at once are safe, as in build().  Raises
+    where make or the compiler is missing, or with the compiler's output
+    where the build fails."""
+    name = TARGETS[target]
+    for tool in ("make", os.environ.get("CXX", "g++")):
+        if not shutil.which(tool):
+            raise RuntimeError(f"{target}: {tool} is not installed")
+    out = BUILD_DIR / f"{target}_{_source_key(['src', 'drivers'])}"
+    _locked_build(out, lambda tmp: ["make", "-s", "-C", str(_HOST), target,
+                                    f"BUILD={tmp}"], target)
+    return out / name
 
 
 def build():
@@ -65,22 +127,31 @@ def build():
     cxx = os.environ.get("CXX", "g++")
     if not (shutil.which("make") and shutil.which(cxx)):
         return None
+    return _locked_build(so, lambda tmp: ["make", "-s", "-C", str(_HOST),
+                                          f"OUT={tmp}"], "libavtpu.so")
+
+
+def sanitizer_missing(kind):
+    """Why the compiler cannot build and run a program with
+    -fsanitize=`kind` ("address" or "thread") here, or None where it can."""
+    cxx = os.environ.get("CXX", "g++")
+    if not shutil.which(cxx):
+        return f"{cxx} is not installed"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if so.exists():  # built while this process waited
-            return so
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = ["make", "-s", "-C", str(_HOST), f"OUT={tmp}"]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    exe = BUILD_DIR / f"probe_{kind}_{os.getpid()}"
+    src = BUILD_DIR / f"{exe.name}.cc"
+    src.write_text("int main() { return 0; }\n")
+    try:
+        res = subprocess.run([cxx, f"-fsanitize={kind}", "-o", str(exe),
+                              str(src)], capture_output=True, text=True)
+        if res.returncode == 0:
+            res = subprocess.run([str(exe)], capture_output=True, text=True)
         if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"libavtpu.so build failed ({res.returncode}): "
-                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, so)
-    return so
+            return f"-fsanitize={kind}: {(res.stdout + res.stderr)[-300:]}"
+        return None
+    finally:
+        src.unlink(missing_ok=True)
+        exe.unlink(missing_ok=True)
 
 
 def _load():

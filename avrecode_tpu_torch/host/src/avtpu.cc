@@ -263,8 +263,11 @@ static Bytes literal_container(const uint8_t* data, size_t size) {
 }
 
 // the reference's dual ledger (recode.cpp:642-668): per element class,
-// recoded bits vs original CABAC bits, printed on AVTPU_BILL=1
+// recoded bits vs original CABAC bits, printed on AVTPU_BILL=1.  A call
+// keeps its own ledger and adds it to the process's under s_bill_mu when it
+// ends or unwinds, so that calls on several threads do not race on it.
 static uint64_t s_bill_global[K_NCLS], s_cbill_global[K_NCLS];
+static std::mutex s_bill_mu;
 static const char* kClsNames[K_NCLS] = {
     "ctx", "skip", "imbtype", "i16cbf", "i16cbc0", "i16cbc1", "i16pm1",
     "i16pm0", "pmbtype0", "pmbtype_i", "pmbtype1", "pmbtype2a", "pmbtype2b",
@@ -280,6 +283,19 @@ static const char* kClsNames[K_NCLS] = {
 
 static void dump_bill();
 
+struct BillLedger {
+  uint64_t bill[K_NCLS] = {}, cbill[K_NCLS] = {};
+  ~BillLedger() { merge(); }
+  void merge() {
+    std::lock_guard<std::mutex> lock(s_bill_mu);
+    for (uint32_t i = 0; i < K_NCLS; i++) {
+      s_bill_global[i] += bill[i];
+      s_cbill_global[i] += cbill[i];
+      bill[i] = cbill[i] = 0;
+    }
+  }
+};
+
 // Thrown by optimistic (journal-free) passes on the first slice failure;
 // the caller redoes the whole unit with rollback journaling enabled.
 // Parse failures are rare (zero across the corpus), so the fast path pays
@@ -293,6 +309,7 @@ static Bytes compress_inner(const uint8_t* data, size_t size, int scope,
   // per-slice models are discarded wholesale on failure, so they never
   // need the journal regardless of the caller's optimistic mode
   bool opt_shared = optimistic && !per_slice;
+  BillLedger ledger;  // outlives the models that point into it
   Walker w(data, size);
 
   std::unique_ptr<RecodeModel> stream_model;
@@ -365,8 +382,8 @@ static Bytes compress_inner(const uint8_t* data, size_t size, int scope,
 
     int mb_count, drop;
     Bytes tail;
-    uint64_t* s_bill = s_bill_global;
-    uint64_t* s_cbill = s_cbill_global;
+    uint64_t* s_bill = ledger.bill;
+    uint64_t* s_cbill = ledger.cbill;
     static bool s_do_bill = getenv("AVTPU_BILL") != nullptr;
     try {
       if (rec.hdr.cavlc) {
@@ -470,7 +487,10 @@ static Bytes compress_inner(const uint8_t* data, size_t size, int scope,
   } else {
     out.blob(stream_model->finish());
   }
-  if (getenv("AVTPU_BILL")) dump_bill();
+  if (getenv("AVTPU_BILL")) {
+    ledger.merge();
+    dump_bill();
+  }
   return out.out;
 }
 
@@ -1116,6 +1136,7 @@ static XtractResult extract_open(const uint8_t* data, size_t size, int scope) {
 }
 
 static void dump_bill() {
+  std::lock_guard<std::mutex> lock(s_bill_mu);
   fprintf(stderr, "%12s %12s %12s %10s\n", "class", "cabac_bits", "recode_bits",
           "delta");
   uint64_t tc = 0, tm = 0;

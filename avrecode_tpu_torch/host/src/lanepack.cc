@@ -112,12 +112,16 @@ void pack_row_u16(const Lane& ln, int Bp, uint16_t* p1, int32_t* bitw) {
   }
 }
 
-// run fn(lo, hi) over [0, n) rows in contiguous runs, one a thread: up to
-// 16 threads, at least 64 rows each
+// threads that over_rows runs n rows on: up to 16, at least 64 rows each
+int row_threads(int64_t n) {
+  const int nt = (int)std::min(16u, std::thread::hardware_concurrency());
+  return (int)std::max<int64_t>(1, std::min<int64_t>(nt, (n + 63) / 64));
+}
+
+// run fn(lo, hi) over [0, n) rows in contiguous runs, one a thread
 template <class Fn>
 void over_rows(int64_t n, Fn fn) {
-  int nt = (int)std::min(16u, std::thread::hardware_concurrency());
-  nt = (int)std::max<int64_t>(1, std::min<int64_t>(nt, (n + 63) / 64));
+  const int nt = row_threads(n);
   if (nt == 1) {
     fn(0, n);
     return;
@@ -172,5 +176,8 @@ int avtpu_lane_pack(const uint64_t* const* recs, const int64_t* n_recs,
   });
   return 0;
 }
+
+// the host threads avtpu_lane_pack runs each pass on for L rows
+int avtpu_lane_pack_threads(int64_t L) { return row_threads(L); }
 
 }  // extern "C"

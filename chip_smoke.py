@@ -112,6 +112,10 @@ Phases; any failure raises and the script exits non-zero:
              three or more dispatches, the fused kernel launched once a
              dispatch in every pass, the card named; prints the bench's
              line (its per-file entries counted, not listed)
+  16 verify  python3 tools/gpu_verify.py --out <a temporary file>: exit
+             code 0 and every check ok (each compress check through either
+             fused launcher, the off-image lanes through lane_encode_streams
+             alone); the committed GPU_VERIFY.json is left as it is
 The last three lines are a JSON line of kernel numbers, the card's name
 and power limit, and {"ok": true, "device": {...}}.  A kernel's `launches`
 there is the sum over the main paths that run it (`launches_by_path`), each
@@ -196,6 +200,7 @@ MAIN_CLIPS = CLIPS + ["cavlc_ipp.mkv"]  # phase 4: a CAVLC stream too
 BENCH_SET = MAIN_CLIPS + ["rt_ctr.mp4"] + [n for n, _ in bench.CONFORMANCE]
 BENCH_GROUPS = 2  # full dispatch groups the phase-15 corpus passes
 BENCH_TIMEOUT_S = 420
+VERIFY_TIMEOUT_S = 600  # tools/gpu_verify.py, start-up included
 MESH_SHARDS = (1, 2, 4, 7)  # shard counts of phase 12 on one card
 MESH_FULL = 4  # shards of the full group, and of the est path
 MESH_B = 4096
@@ -1810,6 +1815,31 @@ def phase_bench():
         raise AssertionError(f"bench: the line fails its checks: {line}")
 
 
+def phase_verify():
+    """tools/gpu_verify.py, as a user starts it, writing its record to a
+    temporary file: exit code 0 and every check ok."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "GPU_VERIFY.json")
+        res = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "gpu_verify.py"),
+             "--out", out], cwd=ROOT, capture_output=True, text=True,
+            timeout=VERIFY_TIMEOUT_S)
+        record = {}
+        if os.path.exists(out):
+            with open(out) as f:
+                record = json.load(f)
+    checks = record.get("checks", {})
+    for name, c in checks.items():
+        log(f"verify {name}: ok={c['ok']} {c.get('launches', c.get('error'))}")
+    log(f"verify: exit code {res.returncode} in {time.time() - t0:.1f} s, "
+        f"{sum(c['ok'] for c in checks.values())} of {len(checks)} checks ok")
+    if (res.returncode != 0 or not checks or not record.get("all_ok")
+            or not all(c["ok"] for c in checks.values())):
+        raise AssertionError(f"gpu_verify.py failed:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-3000:]}")
+
+
 def main():
     # 1 device
     if not torch.cuda.is_available():
@@ -1931,6 +1961,10 @@ def main():
     # 15 the corpus driver over several full dispatch groups
     phase_bench()
     clock.mark("15 bench")
+
+    # 16 the verify tool, every check
+    phase_verify()
+    clock.mark("16 verify")
 
     lane_paths = {"entry": entry_lane,
                   "overflow_fallback": overflow["lane_encode"],

@@ -6,7 +6,10 @@ is integer arithmetic on bytes).
 
 Where the port differs from the JAX package on purpose, none of these
 clips reaches: an AVI's nested `rec ` LISTs are walked in file order, and a
-CAVLC ue() prefix past 31 zeros is refused (tests/test_torch_host_faults.py)."""
+CAVLC ue() prefix past 31 zeros is refused (tests/test_torch_host_faults.py).
+With AVTPU_BILL set, each compress call keeps its own bit ledger and adds
+it to the process's under a lock, so that calls on several threads do not
+race; the ledger printed is the JAX library's (tests/test_torch_tsan.py)."""
 
 import os
 import types
