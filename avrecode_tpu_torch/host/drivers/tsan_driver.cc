@@ -15,7 +15,12 @@
 //                           second (u16) pass runs
 //   - the corpus overlap of parallel/pipeline.py::device_compress_corpus: a
 //     std::thread extracts clip k + 1 with threads while this thread packs
-//     clip k's records, over every clip in turn.
+//     clip k's records, over every clip in turn;
+//   - two avtpu_lane_pack calls at once into one set of buffers at disjoint
+//     row offsets, as ops/lane_coder.py::LaneBatcher points the packer at a
+//     dispatch group's fill row: clip 0 in the index form at row 0, clip 1
+//     with a p1 off the squash image (its u16 pass) at the row after, each
+//     equal to the same pack into buffers of its own.
 // Every pack prints its rows and threads and appends its output to
 // <packs.bin> (see pack), which the test compares with the Python
 // packers.  Exit 0 = clean; TSan reports make the process exit non-zero
@@ -135,6 +140,18 @@ Extracted extract(const std::vector<uint8_t>& in) {
   return x;
 }
 
+// the lane layout of `n` at B: each trace's first row, and the rows
+std::vector<int64_t> lane_starts(const std::vector<int64_t>& n, int B,
+                                 int64_t* L) {
+  std::vector<int64_t> lane0(n.size());
+  *L = 0;
+  for (size_t t = 0; t < n.size(); t++) {
+    lane0[t] = *L;
+    *L += std::max<int64_t>(1, (n[t] + B - 1) / B);
+  }
+  return lane0;
+}
+
 // one avtpu_lane_pack call over the traces, the lanes laid out as
 // host/native.py::lane_pack lays them out.  Appends to `out` ten int64
 // (clip, variant, B, Bp, L, form, threads, moved trace, moved record, 0),
@@ -144,12 +161,8 @@ void pack(FILE* out, int clip, int variant, const std::vector<const uint64_t*>& 
           const std::vector<int64_t>& n, int B, int64_t moved_t,
           int64_t moved_r) {
   const int Bp = (B + 255) / 256 * 256;
-  std::vector<int64_t> lane0(n.size());
   int64_t L = 0;
-  for (size_t t = 0; t < n.size(); t++) {
-    lane0[t] = L;
-    L += std::max<int64_t>(1, (n[t] + B - 1) / B);
-  }
+  std::vector<int64_t> lane0 = lane_starts(n, B, &L);
   std::vector<uint8_t> pk((size_t)L * 3 * Bp / 2);
   std::vector<uint16_t> p1((size_t)L * Bp);
   std::vector<int32_t> bitw((size_t)L * Bp / 32), lens((size_t)L);
@@ -188,6 +201,78 @@ void pack_clip(FILE* out, int clip, const Extracted& x) {
   std::vector<const uint64_t*> recs = x.recs;
   recs[t] = copy.data();
   pack(out, clip, 1, recs, x.n, kSmallB, (int64_t)t, r);
+}
+
+// rows [r0, r0 + L) of the four buffers, Bp bins a row
+struct Rows {
+  uint8_t* pk;
+  uint16_t* p1;
+  int32_t* bitw;
+  int32_t* lens;
+  Rows at(int64_t r0, int Bp) const {
+    return {pk + r0 * 3 * Bp / 2, p1 + r0 * Bp, bitw + r0 * Bp / 32,
+            lens + r0};
+  }
+};
+
+struct Buffers {
+  std::vector<uint8_t> pk;
+  std::vector<uint16_t> p1;
+  std::vector<int32_t> bitw, lens;
+  Buffers(int64_t L, int Bp)
+      : pk((size_t)L * 3 * Bp / 2), p1((size_t)L * Bp),
+        bitw((size_t)L * Bp / 32), lens((size_t)L) {}
+  Rows rows() { return {pk.data(), p1.data(), bitw.data(), lens.data()}; }
+};
+
+int pack_into(const std::vector<const uint64_t*>& recs,
+              const std::vector<int64_t>& n, int B, int Bp, Rows dst) {
+  int64_t L = 0;
+  std::vector<int64_t> lane0 = lane_starts(n, B, &L);
+  return avtpu_lane_pack(recs.data(), n.data(), lane0.data(), (int)n.size(),
+                         B, Bp, L, dst.pk, dst.p1, dst.bitw, dst.lens);
+}
+
+template <class T>
+bool same_rows(const std::vector<T>& a, int64_t a0, const std::vector<T>& b,
+               int64_t rows, size_t width) {
+  return std::equal(b.begin(), b.begin() + rows * width,
+                    a.begin() + a0 * width);
+}
+
+// two packs at once into one set of buffers at disjoint row offsets, each
+// equal to its own pack
+void shared_packs(const Extracted& x0, const Extracted& x1, const char* clip) {
+  const int B = kSmallB, Bp = 256;
+  size_t t = 0;
+  while (t < x1.n.size() && !x1.n[t]) t++;
+  if (t == x1.n.size()) fail("no records to move off the image", clip);
+  std::vector<uint64_t> copy(x1.recs[t], x1.recs[t] + x1.n[t]);
+  copy[0] = (copy[0] & ((1ull << 48) - 1)) | kForeignP1 << 48;
+  std::vector<const uint64_t*> recs1 = x1.recs;
+  recs1[t] = copy.data();
+  int64_t L0 = 0, L1 = 0;
+  lane_starts(x0.n, B, &L0);
+  lane_starts(x1.n, B, &L1);
+  Buffers one(L0, Bp), two(L1, Bp), both(L0 + L1, Bp);
+  const int f0 = pack_into(x0.recs, x0.n, B, Bp, one.rows());
+  const int f1 = pack_into(recs1, x1.n, B, Bp, two.rows());
+  int g1 = -1;
+  std::thread other(
+      [&] { g1 = pack_into(recs1, x1.n, B, Bp, both.rows().at(L0, Bp)); });
+  const int g0 = pack_into(x0.recs, x0.n, B, Bp, both.rows());
+  other.join();
+  const size_t wp = 3 * Bp / 2, ww = Bp / 32;
+  if (f0 != 1 || f1 != 0 || g0 != f0 || g1 != f1 ||
+      !same_rows(both.pk, 0, one.pk, L0, wp) ||
+      !same_rows(both.p1, L0, two.p1, L1, Bp) ||
+      !same_rows(both.bitw, 0, one.bitw, L0, ww) ||
+      !same_rows(both.bitw, L0, two.bitw, L1, ww) ||
+      !same_rows(both.lens, 0, one.lens, L0, 1) ||
+      !same_rows(both.lens, L0, two.lens, L1, 1))
+    fail("packs into one buffer differ from packs of their own", clip);
+  printf("shared pack rows=%lld+%lld forms=%d,%d equal\n", (long long)L0,
+         (long long)L1, g0, g1);
 }
 
 }  // namespace
@@ -234,6 +319,12 @@ int main(int argc, char** argv) {
     cur = next;
   }
   fclose(out);
+
+  Extracted x0 = extract(in[0]), x1 = extract(in[1]);
+  if (!x0.handle || !x1.handle) fail("xopen returned null", argv[2]);
+  shared_packs(x0, x1, argv[3]);
+  avtpu_xclose(x0.handle);
+  avtpu_xclose(x1.handle);
   printf("OK clips=%d\n", n_clips);
   return 0;
 }

@@ -426,6 +426,33 @@ def lane_pack(traces, B, Bp):
     released."""
     import numpy as np
 
+    L = lane_rows(traces, B)
+    pk = np.empty((L, 3 * Bp // 2), np.uint8)
+    p1 = np.empty((L, Bp), np.uint16)  # written only where pk is not
+    bitw = np.empty((L, Bp // 32), np.int32)
+    lens = np.empty(L, np.int32)
+    form, spans = lane_pack_into(traces, B, Bp, pk, p1, bitw, lens)
+    return (pk if form else p1), bitw, lens, spans
+
+
+def lane_rows(traces, B):
+    """Lane rows lane_pack cuts the traces into: ceil(T / B) a trace, at
+    least one."""
+    return sum(max(1, -(-len(t) // B)) for t in traces)
+
+
+def lane_pack_into(traces, B, Bp, pk, p1, bitw, lens):
+    """lane_pack into the caller's arrays: pk uint8 [L, 3 * Bp / 2], p1
+    uint16 [L, Bp], bitw int32 [L, Bp / 32] and lens int32 [L], each
+    C-contiguous with exactly L = lane_rows(traces, B) rows (a view of
+    rows [r0, r0 + L) of a larger buffer places the traces' lanes at row
+    r0).  Writes the index form into pk and returns (1, spans), or, where
+    a valid p1 leaves the squash image, the u16 form into p1 and returns
+    (0, spans); bitw and lens either way.  The other form's array may hold
+    anything after the call: pk holds the index rows written before the
+    first foreign p1 was found."""
+    import numpy as np
+
     lib = _load()
     assert lib is not None
     counts = np.array([len(t) for t in traces], np.int64)
@@ -433,21 +460,27 @@ def lane_pack(traces, B, Bp):
     ends = np.cumsum(k)
     lane0 = ends - k
     L = int(ends[-1]) if len(ends) else 0
+    for name, a, dtype, shape in (
+            ("pk", pk, np.uint8, (L, 3 * Bp // 2)),
+            ("p1", p1, np.uint16, (L, Bp)),
+            ("bitw", bitw, np.int32, (L, Bp // 32)),
+            ("lens", lens, np.int32, (L,))):
+        if (not isinstance(a, np.ndarray) or a.dtype != dtype
+                or a.shape != shape or not a.flags.c_contiguous
+                or not a.flags.writeable):
+            raise ValueError(
+                f"lane_pack_into: {name} must be a writeable C-contiguous "
+                f"{np.dtype(dtype).name} array of shape {shape}")
     recs = [np.ascontiguousarray(t.recs, np.uint64) for t in traces]
     ptrs = (ctypes.c_void_p * max(len(recs), 1))(
         *[r.ctypes.data for r in recs])
-    pk = np.empty((L, 3 * Bp // 2), np.uint8)
-    p1 = np.empty((L, Bp), np.uint16)  # written only where pk is not
-    bitw = np.empty((L, Bp // 32), np.int32)
-    lens = np.empty(L, np.int32)
     form = lib.avtpu_lane_pack(
         ctypes.cast(ptrs, ctypes.c_void_p), counts.ctypes.data,
         lane0.ctypes.data, len(recs), B, Bp, L, pk.ctypes.data,
         p1.ctypes.data, bitw.ctypes.data, lens.ctypes.data)
     if form < 0:
         raise ValueError(f"lane_pack: bad shapes (B={B}, Bp={Bp})")
-    spans = list(zip(lane0.tolist(), ends.tolist()))
-    return (pk if form else p1), bitw, lens, spans
+    return form, list(zip(lane0.tolist(), ends.tolist()))
 
 
 def decompress(blob, threads=1):

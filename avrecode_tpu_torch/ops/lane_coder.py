@@ -25,10 +25,14 @@ The main path does both in one launch: lane_encode_streams (the CUDA kernel
 csrc/lane_streams.cu, which replaces the JAX package's _lane_pipeline_jit =
 _lane_kernel + _finalize_device) goes from the lane problem straight to
 every lane's stream bytes; lane_encode_streams_plain = finalize_device of
-lane_encode_plain is its plain version.  Around it, lane_dispatch_compact
-uploads through reused pinned staging buffers and launches without a host
-sync, and lane_collect reads back the lengths first and then only the
-columns that hold stream bytes.
+lane_encode_plain is its plain version.  Around it, LaneBatcher packs
+each file's lanes straight into a dispatch group's reused pinned staging
+buffer (the native packer writes at the group's fill row), dispatch_group
+uploads the group from there and launches without a host sync, and
+collect_groups reads back the lengths first and then only the columns that
+hold stream bytes, one bytes object a group, from which GroupStreams cuts
+the envelopes by offset.  lane_dispatch_compact and lane_collect do the
+same for numpy rows and per-lane bytes.
 
 The lane problem comes in two upload forms, as in the JAX package:
   index form  uint8 [L, 3 * Bp / 2]: two 12-bit squash-table indices in three
@@ -46,6 +50,7 @@ in int64 tensors with explicit & 0xFFFFFFFF masks; a plain compare is then
 the unsigned compare the JAX version builds from a sign flip.
 """
 
+import bisect
 import functools
 import threading
 
@@ -713,32 +718,143 @@ def max_bytes(Bp, bits_per_byte=4):
     return -(-Bp // bits_per_byte // 8) * 8 + 8
 
 
+GROUP_RING = 2  # group staging buffers a (form, width) of a process
+
+
+class _Group:
+    """The host rows of one dispatch group in one upload form: p1 (index
+    form uint8 [rows, 3 * Bp / 2], u16 form uint16 [rows, Bp]), bitw int32
+    [rows, Bp / 32] and lens int32 [rows], as tensors and as numpy views
+    of the same memory (`np`), which the packers write into.  `event` is
+    the event recorded behind the last host-to-device copy that read them
+    (None before the first); `busy` while a caller fills them."""
+
+    def __init__(self, index, Bp, rows, pin):
+        dt, w = (torch.uint8, 3 * Bp // 2) if index else (torch.uint16, Bp)
+        self.index, self.Bp = index, Bp
+        self.p1 = torch.empty((rows, w), dtype=dt, pin_memory=pin)
+        self.bitw = torch.empty((rows, Bp // 32), dtype=torch.int32,
+                                pin_memory=pin)
+        self.lens = torch.empty(rows, dtype=torch.int32, pin_memory=pin)
+        self.np = tuple(t.numpy() for t in (self.p1, self.bitw, self.lens))
+        self.event = None
+        self.busy = True
+
+    def put(self, r0, p1, bitw, lens):
+        """Copy numpy rows (p1 in this group's form) in at row r0."""
+        n = p1.shape[0]
+        for dst, src in zip((self.p1, self.bitw, self.lens), (p1, bitw, lens)):
+            dst[r0:r0 + n].copy_(torch.from_numpy(np.ascontiguousarray(src)))
+
+
+class _GroupRing:
+    """The process's group staging buffers, beside _Staging: the packer
+    writes a whole group's rows in place, so the upload reads them where
+    they lie, and a group's buffers are as large as its rows.  _Staging
+    stays for everything else that goes up (the est path's rows, the
+    decoder's streams, lane rows handed in as numpy arrays): arrays of any
+    size, copied in pieces of STAGE_BYTES, so its pinned memory does not
+    grow with them.
+
+    For a CUDA device, pinned groups of `rows` rows a (form, Bp, rows),
+    allocated once and reused in turns, up to GROUP_RING of each (more only
+    while every one is being filled); a group is handed out again only
+    after the copy that last read it has finished.  For the CPU, a fresh
+    plain group each time (the same code path, nothing to reuse).  Pinning
+    that fails raises."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.rings = {}  # (index, Bp, rows) -> [group, ...], least recent first
+
+    def take(self, index, Bp, rows, dev):
+        """A group of `rows` rows in the given form, free to be written
+        (busy until dispatched or released)."""
+        if Bp > MAX_B:
+            raise ValueError(f"B={Bp} > {MAX_B} overflows 16-bit carry "
+                             "counts")
+        if dev.type != "cuda":
+            return _Group(index, Bp, rows, pin=False)
+        with self.lock:
+            ring = self.rings.setdefault((index, Bp, rows), [])
+            free = [g for g in ring if not g.busy]
+            if len(ring) < GROUP_RING or not free:
+                group = _Group(index, Bp, rows, pin=True)
+            else:
+                group = free[0]
+                ring.remove(group)
+                group.busy = True
+            ring.append(group)
+        if group.event is not None:
+            group.event.synchronize()
+        return group
+
+    def release(self, group):
+        with self.lock:
+            group.busy = False
+
+
+_groups = _GroupRing()
+
+
+def upload_group(group, n, dev):
+    """The group's first n rows -> (p1, bitw, lens) on `dev`: one
+    non_blocking copy_ an array straight from the group's buffers, no host
+    copy between the packer and the bus, no wait for the card.  The event
+    recorded behind the copies frees the group for its next fill."""
+    bufs = (group.p1, group.bitw, group.lens)
+    prob = tuple(torch.empty((n, *t.shape[1:]), dtype=t.dtype, device=dev)
+                 for t in bufs)
+    for dst, src in zip(prob, bufs):
+        dst.copy_(src[:n], non_blocking=True)
+    if dev.type == "cuda":
+        group.event = torch.cuda.Event()
+        group.event.record(torch.cuda.current_stream(dev))
+    _groups.release(group)
+    return prob
+
+
+def _launch(n, lens, prob, Bp, bits_per_byte):
+    """One launch of the fused kernel of prob's upload form on its first n
+    rows: the pending handle (rows, lens, out, nbytes, total, prob)."""
+    code = lane_encode_streams_idx if index_form(prob[0]) else (
+        lane_encode_streams)
+    return (n, lens, *code(*prob, max_bytes(Bp, bits_per_byte)), prob)
+
+
+def dispatch_group(group, n, dev, bits_per_byte=4):
+    """Upload the group's first n rows (upload_group) and code them with
+    one launch of the fused kernel of the group's form, on the current
+    stream of `dev`, without a host sync.  Returns one pending handle:
+    (rows, lens, out, nbytes, total, the group's device inputs), the inputs
+    in the form uploaded.  bits_per_byte sets the byte bound a lane
+    (max_bytes); a group with a lane past it is coded again by
+    collect_groups from the inputs kept in the handle."""
+    prob = upload_group(group, n, dev)
+    return _launch(n, prob[2], prob, group.Bp, bits_per_byte)
+
+
 def lane_dispatch_compact(p1, bitw, lens, device=None, bits_per_byte=4):
     """Dispatch phase of lane_streams_device_compact: upload every group of
-    GROUP_ROWS lane rows and code it with one fused launch, on the current
-    stream of `device`, without a host sync, so callers overlap host work
-    (extraction and packing of the next file, the next shard of a mesh)
-    with device work, then drain with lane_collect.
+    GROUP_ROWS numpy lane rows (through the pinned staging ring, _upload)
+    and code it with one fused launch, on the current stream of `device`,
+    without a host sync, so callers overlap host work (the next shard of a
+    mesh) with device work, then drain with lane_collect.
 
     p1 is either upload form (see the module docstring): uint8 packed
     indices [L, 3 * Bp / 2], which lane_encode_streams_idx codes, or uint16
     p1 [L, Bp], which lane_encode_streams codes; the packer (pack_lanes)
-    chose it by the squash-image rule.  Returns one pending handle a group:
-    (rows, lens, out, nbytes, total, the group's device inputs), the inputs
-    in the form uploaded.  bits_per_byte sets the byte bound a lane
-    (max_bytes); a group with a lane past it is coded again by lane_collect
-    from the inputs kept in the handle."""
+    chose it by the squash-image rule.  Returns one pending handle a group
+    (dispatch_group's)."""
     dev = resolve_device(device)
     L, Bp = p1.shape[0], lane_bins(p1)
     if Bp > MAX_B:
         raise ValueError(f"B={Bp} > {MAX_B} overflows 16-bit carry counts")
-    M = max_bytes(Bp, bits_per_byte)
-    code = lane_encode_streams_idx if index_form(p1) else lane_encode_streams
     pending = []
     for lo in range(0, L, GROUP_ROWS):
         hi = min(lo + GROUP_ROWS, L)
         prob = tuple(_upload(a[lo:hi], dev) for a in (p1, bitw, lens))
-        pending.append((hi - lo, lens[lo:hi], *code(*prob, M), prob))
+        pending.append(_launch(hi - lo, prob[2], prob, Bp, bits_per_byte))
     return pending
 
 
@@ -746,8 +862,10 @@ def read_group(n, out, nbytes, total):
     """Read one dispatched group back: its lengths first (the one wait for
     the device), then only the columns that hold stream bytes, in one copy
     through pinned memory.  Returns (nb, w, flat): lane l's stream is
-    flat[l * w: l * w + nb[l]]; or None when a lane emitted more than the
-    byte bound."""
+    flat[l * w: l * w + nb[l]], flat a bytes object of the group's own (the
+    pinned read-back buffer is rewritten by the next group's read, so
+    nothing may keep a view into it); or None when a lane emitted more
+    than the byte bound."""
     nb, tot = torch.stack([nbytes[:n], total[:n]]).cpu().numpy()
     if n and tot.max() > out.shape[1]:
         return None
@@ -766,16 +884,17 @@ def cut_streams(nb, w, flat):
     return [flat[l * w: l * w + n] for l, n in enumerate(nb.tolist())]
 
 
-def lane_collect(pending):
-    """Collect phase: read back dispatched lane groups -> stream bytes
-    (read_group, cut_streams).
+def collect_groups(pending):
+    """Collect phase: read back dispatched lane groups, one (nb, w, flat)
+    a group (read_group).
 
     lane_collect.overflows counts groups in which a lane emitted more than
     the byte bound: such a group is coded again with lane_encode (an
-    index-form group's p1 first unpacked on its device by unpack_p1_idx)
-    and finalized exactly on the host (finalize_lanes)."""
-    streams = []
-    for n, glens, out, nbytes, total, prob in pending:
+    index-form group's p1 first unpacked on its device by unpack_p1_idx),
+    finalized exactly on the host (finalize_lanes), and given in the same
+    form, each lane's bytes padded to the longest."""
+    groups = []
+    for n, _, out, nbytes, total, prob in pending:
         got = read_group(n, out, nbytes, total)
         if got is None:
             lane_collect.overflows += 1
@@ -783,13 +902,159 @@ def lane_collect(pending):
                 prob = (unpack_p1_idx(prob[0]), *prob[1:])
             tok, car, ftok, fcar = (t[:n].cpu().numpy()
                                     for t in lane_encode(*prob))
-            streams.extend(finalize_lanes(tok, car, ftok, fcar, glens))
-        else:
-            streams.extend(cut_streams(*got))
+            streams = finalize_lanes(tok, car, ftok, fcar,
+                                     prob[2][:n].cpu().numpy())
+            w = max(map(len, streams), default=0)
+            got = (np.array([len(s) for s in streams], np.int32), w,
+                   b"".join(s.ljust(w, b"\0") for s in streams))
+        groups.append(got)
+    return groups
+
+
+def lane_collect(pending):
+    """Collect phase as stream bytes, a bytes object a lane
+    (collect_groups, then cut_streams)."""
+    streams = []
+    for got in collect_groups(pending):
+        streams.extend(cut_streams(*got))
     return streams
 
 
 lane_collect.overflows = 0
+
+
+class GroupStreams:
+    """The streams of read-back groups (collect_groups' result) over the
+    global rows, groups in dispatch order; a lane's bytes are taken by
+    offset into its group's flat bytes, with no bytes object a lane."""
+
+    def __init__(self, groups):
+        self.starts = [0]  # global row of each group's first lane
+        self.nbs, self.ws, self.flats = [], [], []
+        for nb, w, flat in groups:
+            self.nbs.append(nb.tolist())
+            self.ws.append(w)
+            self.flats.append(memoryview(flat))
+            self.starts.append(self.starts[-1] + len(nb))
+
+    def envelope(self, lo, hi):
+        """_make_envelope of the streams of lanes [lo, hi), over memoryview
+        slices of the groups' bytes (no bytes object a lane)."""
+        g = bisect.bisect_right(self.starts, lo) - 1
+        parts = []
+        for l in range(lo, hi):
+            while l >= self.starts[g + 1]:
+                g += 1
+            r = l - self.starts[g]
+            w = self.ws[g]
+            parts.append(self.flats[g][r * w: r * w + self.nbs[g][r]])
+        return _make_envelope(parts)
+
+
+class LaneBatcher:
+    """Lane accumulator over files: files append their lane rows to one
+    global row stream, in dispatch groups of `big` rows that launch as they
+    fill (dispatch_group), so many small files share a dispatch instead of
+    each paying for a tail group.  Row order is append order, so each
+    file's lanes occupy one contiguous global range.
+
+    Rows go straight into the group's staging buffer (_GroupRing.take):
+    native traces are packed there by native.lane_pack_into at the group's
+    fill row, other rows copied in (add).  A group holds rows of one upload
+    form only: a file whose rows come in the other form than the rows
+    waiting (the packer gives a file the u16 form where its p1 leave the
+    squash image) first dispatches those as a group of their own.  A file
+    that crosses a group boundary is packed apart and copied in pieces."""
+
+    def __init__(self, device, big=None):
+        self.dev = resolve_device(device)
+        self.big = big or GROUP_ROWS
+        self.group = None  # the group being filled
+        self.acc = 0  # its rows filled
+        self.index = True  # the form of the next group
+        self.pending = []  # dispatched group handles, global row order
+        self.rows = 0  # total rows appended
+
+    def _current(self, index, Bp):
+        """The group being filled, in the given form and width: a group
+        of another dispatches its rows first (or goes back unused)."""
+        g = self.group
+        if g is not None and (g.index, g.Bp) != (index, Bp):
+            if self.acc:
+                self._flush()
+            else:
+                _groups.release(g)
+                self.group = None
+        if self.group is None:
+            self.group = _groups.take(index, Bp, self.big, self.dev)
+            self.index = index
+        return self.group
+
+    def _flush(self):
+        self.pending.append(dispatch_group(self.group, self.acc, self.dev))
+        self.group, self.acc = None, 0
+
+    def add(self, p1, bitw, lens):
+        """Append one file's numpy rows (p1 in either upload form), copied
+        into the groups; returns (global_lo, global_hi)."""
+        index, Bp = index_form(p1), lane_bins(p1)
+        n, done = p1.shape[0], 0
+        lo = self.rows
+        self.rows += n
+        while done < n:
+            g = self._current(index, Bp)
+            k = min(n - done, self.big - self.acc)
+            g.put(self.acc, p1[done:done + k], bitw[done:done + k],
+                  lens[done:done + k])
+            self.acc += k
+            done += k
+            if self.acc == self.big:
+                self._flush()
+        return lo, self.rows
+
+    def add_traces(self, traces, B):
+        """Append one file's traces cut into lanes of B bins (pack_lanes'
+        rows and rule); returns ((global_lo, global_hi), spans), spans[i]
+        the lane range of traces[i] within the file.  Native traces that
+        fit in the group's free rows are packed straight into them."""
+        if not all(hasattr(t, "recs32") for t in traces):
+            p1, bitw, lens, spans = pack_lanes(traces, B)
+            return self.add(p1, bitw, lens), spans
+        Bp = -(-max(B, 1) // CHUNK) * CHUNK
+        L = native.lane_rows(traces, B)
+        g = self._current(self.index, Bp)
+        r0 = self.acc
+        if L > self.big - r0:
+            p1, bitw, lens, spans = native.lane_pack(traces, B, Bp)
+            return self.add(p1, bitw, lens), spans
+        # the other form's pass writes a scratch array of its own
+        other = (np.empty((L, Bp), np.uint16) if g.index
+                 else np.empty((L, 3 * Bp // 2), np.uint8))
+        mine = g.np[0][r0:r0 + L]
+        bitw, lens = g.np[1][r0:r0 + L], g.np[2][r0:r0 + L]
+        form, spans = native.lane_pack_into(
+            traces, B, Bp, *((mine, other) if g.index else (other, mine)),
+            bitw, lens)
+        if (form == 1) != g.index:
+            # rows r0 on stay unclaimed (never dispatched): the file goes
+            # in a group of its form, after the rows that wait
+            return self.add(other, bitw.copy(), lens.copy()), spans
+        lo = self.rows
+        self.rows += L
+        self.acc += L
+        if self.acc == self.big:
+            self._flush()
+        return (lo, self.rows), spans
+
+    def finish(self):
+        """Dispatch the rows that wait, then read every group back:
+        GroupStreams over the global rows."""
+        if self.acc:
+            self._flush()
+        elif self.group is not None:
+            _groups.release(self.group)
+            self.group = None
+        return GroupStreams(collect_groups(self.pending))
 
 
 def lane_streams_device_compact(p1, bitw, lens, device=None,
@@ -919,7 +1184,10 @@ def choose_form(p1u16, lens):
 def encode_traces_lanes(traces, B, device=None, encode_fn=None):
     """Device entropy stage: traces -> per-trace sub-stream ENVELOPE bytes
     (the v2 container's stream blob for substream_bins=B), byte-identical
-    to RecodeModel(..., substream_bins=B).finish().
+    to RecodeModel(..., substream_bins=B).finish().  The lanes go through a
+    LaneBatcher of their own: native traces packed straight into the
+    groups' staging buffers, the envelopes cut from each group's one
+    read-back by offset.
 
     encode_fn overrides the coder (a mesh-sharded one, see
     parallel/pipeline._mesh_lane_encoder): it takes the compact lane
@@ -932,9 +1200,11 @@ def encode_traces_lanes(traces, B, device=None, encode_fn=None):
     dev = None if encode_fn is not None else resolve_device(device)
     if not traces:
         return []
-    p1, bitw, lens, spans = pack_lanes(traces, B)
     if encode_fn is not None:
+        p1, bitw, lens, spans = pack_lanes(traces, B)
         streams = encode_fn(p1, bitw, lens)
-    else:
-        streams = lane_streams_device_compact(p1, bitw, lens, dev)
-    return [_make_envelope(streams[lo:hi]) for lo, hi in spans]
+        return [_make_envelope(streams[lo:hi]) for lo, hi in spans]
+    batcher = LaneBatcher(dev)
+    _, spans = batcher.add_traces(traces, B)
+    got = batcher.finish()
+    return [got.envelope(lo, hi) for lo, hi in spans]

@@ -45,7 +45,7 @@ import torch.distributed as dist
 from .. import resolve_device
 from ..codec import _scan_blocks, compress, decompress, serialize_container
 from ..host import native
-from ..models.h264_model import RecodeModel, _make_envelope
+from ..models.h264_model import RecodeModel
 from ..models.trace import N_CLS, TraceModel
 from ..ops.est_coder import (
     encode_traces_est,
@@ -58,13 +58,11 @@ from ..ops.estimator import pack_stream_rows
 from ..ops import lane_decoder
 from ..ops.lane_coder import (
     CHUNK,
-    GROUP_ROWS,
+    LaneBatcher,
     auto_substream_bins,
     encode_traces_lanes,
-    index_form,
     lane_collect,
     lane_dispatch_compact,
-    pack_lanes,
 )
 from ..utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
 from .mesh import check_mesh, make_mesh, on_shard, shard_ranges, shard_streams
@@ -243,78 +241,19 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
                       substream_bins)
 
 
-class _LaneBatcher:
-    """Cross-file lane accumulator: files append their lane rows to one
-    global row stream; full `big`-row dispatch groups launch as they fill,
-    so many small files share dispatches instead of each paying for a
-    tail group.  Row order is append order, so each file's lanes occupy
-    one contiguous global range.  A group joins rows of one upload form
-    only: a file whose rows come in the other form than the rows waiting
-    (pack_lanes gives a file the u16 form where its p1 leave the squash
-    image) first dispatches those as a group of their own."""
-
-    def __init__(self, dispatch_fn, big):
-        self.dispatch = dispatch_fn
-        self.big = big
-        self.segs = []  # undispatched (p1, bitw, lens) row segments
-        self.acc = 0
-        self.pending = []  # dispatched group handles, global row order
-        self.rows = 0  # total rows appended
-
-    def add(self, p1, bitw, lens):
-        """Append one file's rows (p1 in either upload form); returns
-        (global_lo, global_hi)."""
-        if self.segs and index_form(self.segs[0][0]) != index_form(p1):
-            self._flush(self.acc)
-        lo = self.rows
-        self.rows += p1.shape[0]
-        self.segs.append([p1, bitw, lens])
-        self.acc += p1.shape[0]
-        while self.acc >= self.big:
-            self._flush(self.big)
-        return lo, self.rows
-
-    def _take(self, g):
-        """Pop exactly g rows off the segment queue (splitting the last)."""
-        parts = [[], [], []]
-        need = g
-        while need:
-            seg = self.segs[0]
-            n = seg[0].shape[0]
-            if n <= need:
-                for k in range(3):
-                    parts[k].append(seg[k])
-                self.segs.pop(0)
-                need -= n
-            else:
-                for k in range(3):
-                    parts[k].append(seg[k][:need])
-                    seg[k] = seg[k][need:]
-                need = 0
-        self.acc -= g
-        return (np.concatenate(parts[0]), np.concatenate(parts[1]),
-                np.concatenate(parts[2]))
-
-    def _flush(self, g):
-        self.pending.extend(self.dispatch(*self._take(g)))
-
-    def finish(self):
-        """Dispatch the remainder, then collect -> global stream list."""
-        if self.acc:
-            self._flush(self.acc)
-        return lane_collect(self.pending)
-
-
 def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
                            device=None, stats=None):
     """Batch-directory device compression: compress many files through ONE
     overlapped device pipeline instead of per-file device_compress calls.
 
-    Per file the host extracts + packs, then APPENDS its lanes to the
-    cross-file batcher; full dispatch groups launch as they fill, while a
-    worker thread extracts the next file (one-deep prefetch; the native
-    extractor releases the GIL).  Output containers are byte-identical to
-    device_compress(f, scope=..., substream_bins=...) per file.
+    Per file the host extracts, then packs its lanes straight into the
+    cross-file batcher's dispatch group (ops/lane_coder.LaneBatcher); full
+    groups launch as they fill, while a worker thread extracts the next
+    file (one-deep prefetch; the native extractor and packer release the
+    GIL).  After the last group is read back, each trace's envelope is cut
+    from its group's bytes by offset.  Output containers are
+    byte-identical to device_compress(f, scope=..., substream_bins=...)
+    per file.
 
     inputs: list of paths or bytes.  Returns list of container bytes.
     stats (optional dict) receives {'dispatches': N, 'bins': M}.
@@ -336,11 +275,8 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
     # extract on the host CPU
     order = sorted(range(len(datas)), key=lambda i: -len(datas[i]))
 
-    def dispatch(p1, bitw, lens):
-        return lane_dispatch_compact(p1, bitw, lens, dev)
-
     metas_by_idx = [None] * len(datas)
-    batcher = _LaneBatcher(dispatch, GROUP_ROWS)
+    batcher = LaneBatcher(dev)
     n_bins = 0
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
         nxt = None
@@ -355,12 +291,11 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
             sps, pps, blocks, traces, _ = cur.result()
             rows = spans = None
             if traces:
-                p1, bitw, lens, spans = pack_lanes(traces, substream_bins)
-                rows = batcher.add(p1, bitw, lens)
+                rows, spans = batcher.add_traces(traces, substream_bins)
                 n_bins += sum(len(t) for t in traces)
             metas_by_idx[idx] = (sps, pps, blocks, traces, spans, rows)
     # drain all device work
-    all_streams = batcher.finish()
+    got = batcher.finish()
     outs = []
     for data, (sps, pps, blocks, traces, spans, rows) in zip(datas,
                                                              metas_by_idx):
@@ -368,8 +303,7 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
             outs.append(compress(data, scope=scope,
                                  substream_bins=substream_bins))
             continue
-        streams = all_streams[rows[0]:rows[1]]
-        envs = [_make_envelope(streams[lo:hi]) for lo, hi in spans]
+        envs = [got.envelope(rows[0] + lo, rows[0] + hi) for lo, hi in spans]
         outs.append(_serialize(scope_id, sps, pps, blocks, traces, envs,
                                substream_bins))
     if stats is not None:

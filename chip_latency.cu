@@ -9,7 +9,9 @@
 // Each kernel runs one warp over 100,000 dependent steps of one kind and
 // reads clock64() around them; the host times the same launch with CUDA
 // events, which gives the SM clock.  A step of two instructions is printed
-// as their sum.
+// as their sum.  The last three lines are the loop-carried paths of one
+// est_encode bin (est_chain), from which the est kernel's chain floor a
+// bin is the longest.
 
 #include <cstdint>
 #include <cstdio>
@@ -70,6 +72,89 @@ void run(const char* name) {
          static_cast<double>(c) / kSteps, ms * 1e6 / kSteps, c / (ms * 1e6));
   cudaFree(out);
   cudaFree(cycles);
+}
+
+// The loop-carried paths of one est_encode bin (csrc/est_encode.cu's serial
+// phase), each run as a chain of dependent steps with the kernel's
+// operations and a shared-memory table: kind 0, the mixer weights, where a
+// bin's class repeats (the six-term dot, its clamp, the squash lookup, the
+// error, the six clamped updates that the next dot reads); kind 1, an APM
+// cell, where a bin's cell repeats (the load after the last bin's store,
+// the update, the store); kind 2, the estimator row, where a bin's slot
+// repeats (the counters unpacked, counted, halved at the limit and packed
+// again; the division and the stretch lookup of pack_row feed the next
+// bin's mixer input, not the row).  The longest of these and the range
+// coder's (LANE: 53 cycles) is the chain a trace's bins wait on.
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+template <int KIND>
+__global__ void est_chain(int* out, long long* cycles, const int* xs) {
+  __shared__ uint16_t s_tab[4096];
+  for (int i = threadIdx.x; i < 4096; i += blockDim.x)
+    s_tab[i] = static_cast<uint16_t>((i * 37 + 11) & 0xFFFF);
+  __syncthreads();
+  const int x0 = xs[0], x1 = xs[1], x3 = xs[2], x4 = xs[3], x5 = xs[4];
+  const int limit = xs[5], frac = xs[6] & 127, cell = xs[7] & 4095;
+  int w0 = xs[8], w1 = xs[9], w2 = xs[10], w3 = xs[11], w4 = xs[12],
+      w5 = xs[13];
+  uint32_t row = static_cast<uint32_t>(xs[14]);
+  volatile uint16_t* ar = s_tab + cell;
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int i = 0; i < kSteps; ++i) {
+    const int tgt = ((i >> 1) & 1) << 16;
+    if (KIND == 0) {
+      int dot = ((w0 >> 6) * x0 + (w1 >> 6) * x1 + (w2 >> 6) * 77 +
+                 (w3 >> 6) * x3 + (w4 >> 6) * x4 + (w5 >> 6) * x5) >> 10;
+      dot = clampi(dot, -2048, 2047);
+      const int err = tgt - s_tab[dot + 2048];
+      w0 = clampi(w0 + ((err * x0) >> 14), -(1 << 24), 1 << 24);
+      w1 = clampi(w1 + ((err * x1) >> 14), -(1 << 24), 1 << 24);
+      w2 = clampi(w2 + ((err * 77) >> 14), -(1 << 24), 1 << 24);
+      w3 = clampi(w3 + ((err * x3) >> 14), -(1 << 24), 1 << 24);
+      w4 = clampi(w4 + ((err * x4) >> 14), -(1 << 24), 1 << 24);
+      w5 = clampi(w5 + ((err * x5) >> 14), -(1 << 24), 1 << 24);
+    } else if (KIND == 1) {
+      const int a0 = ar[0];
+      ar[0] = static_cast<uint16_t>(a0 + (((tgt - a0) * (128 - frac)) >> 13));
+    } else {
+      const int bit = tgt >> 16;
+      int e0 = (row & 0x7FFF) + bit, e1 = ((row >> 15) & 0x7FFF) + 1 - bit;
+      if (e0 + e1 > limit) {
+        e0 = (e0 + 1) >> 1;
+        e1 = (e1 + 1) >> 1;
+      }
+      row = static_cast<uint32_t>(e0) | (static_cast<uint32_t>(e1) << 15) |
+            (static_cast<uint32_t>(bit) << 30);
+    }
+  }
+  const long long t1 = clock64();
+  out[threadIdx.x] = w0 ^ w1 ^ w2 ^ w3 ^ w4 ^ w5 ^ static_cast<int>(row) ^ ar[0];
+  if (threadIdx.x == 0) cycles[0] = t1 - t0;
+}
+
+template <int KIND>
+void run_est(const char* name) {
+  int* out;
+  long long* cycles;
+  int* xs;
+  const int h[15] = {-700, 300, 500, 256, -128, 0x60, 45, 1234,
+                     24576, 24576, 0, 0, 0, 0, 3 | (5 << 15)};
+  cudaMalloc(&out, 4096);
+  cudaMalloc(&cycles, 8);
+  cudaMalloc(&xs, sizeof h);
+  cudaMemcpy(xs, h, sizeof h, cudaMemcpyHostToDevice);
+  est_chain<KIND><<<1, 32>>>(out, cycles, xs);  // warm-up
+  cudaDeviceSynchronize();
+  est_chain<KIND><<<1, 32>>>(out, cycles, xs);
+  long long c = 0;
+  cudaMemcpy(&c, cycles, 8, cudaMemcpyDeviceToHost);
+  printf("%-28s %6.2f cycles a step\n", name, static_cast<double>(c) / kSteps);
+  cudaFree(out);
+  cudaFree(cycles);
+  cudaFree(xs);
 }
 
 // Where the warps of a launch land: each warp records its SM (%smid) and
@@ -156,5 +241,8 @@ int main(int argc, char** argv) {
   run<5>("LOP3 + LDS");
   run<6>("LOP3 + SHF (funnel)");
   run<7>("FLO.SH + IADD3 (bfind)");
+  run_est<0>("est bin: mixer weights");
+  run_est<1>("est bin: an APM cell");
+  run_est<2>("est bin: estimator row");
   return cudaDeviceSynchronize() == cudaSuccess ? 0 : 1;
 }

@@ -41,7 +41,12 @@ Phases; any failure raises and the script exits non-zero:
              call launched lane_encode_streams_idx (the index form, which
              native traces take) and no other lane kernel; then
              lane_streams_device_compact on p1 off the squash image takes
-             the u16 form, lane_encode_streams
+             the u16 form, lane_encode_streams; then phase 15's corpus
+             through device_compress_corpus at B = 4096, ~8 dispatch
+             groups a pass against a staging ring of 2 a form, twice (the
+             second time behind a sleep kernel, so that every upload waits
+             and a buffer refilled under its copy would send wrong rows):
+             every pass's containers equal the first's and codec.compress
   5 full     one full dispatch group, [8192, 16384] lanes tiled from the
              clips' real (bit, p1) traces, in both upload forms (the index
              form from the native packer): lane_encode vs plain (equal
@@ -62,9 +67,12 @@ Phases; any failure raises and the script exits non-zero:
              to codec.compress for one clip), roundtripping through both
              decoders; the est kernel must have launched
   8 full     the clips' slice traces replicated to 1,024 traces in one
-             encode_traces_est call; kernel vs plain on that problem:
-             equal tokens, both timed with CUDA events, the kernel's time
-             beside its bound; the kernel alone on the longest gop trace
+             encode_traces_est call; the kernel on that problem against
+             the plain version run once on the distinct base traces: every
+             kernel row equal to its base row's tokens, both timed with
+             CUDA events, the kernel's time beside its bound (phase 5's
+             tiled lanes repeat no row, so its plain versions run whole);
+             the kernel alone on the longest gop trace
              and on the longest slice trace replicated 1, 128 and 1,024 times
   9 kernel   lane_decode (CUDA kernel) vs lane_decode_plain on the same card
              tensors, exact: the phase-3 problems encoded on the card by
@@ -199,6 +207,8 @@ MAIN_CLIPS = CLIPS + ["cavlc_ipp.mkv"]  # phase 4: a CAVLC stream too
 # phase 15: every pinned clip and conformance stream, repeated
 BENCH_SET = MAIN_CLIPS + ["rt_ctr.mp4"] + [n for n, _ in bench.CONFORMANCE]
 BENCH_GROUPS = 2  # full dispatch groups the phase-15 corpus passes
+RING_B = 4096  # the ring check's B: ~8 dispatch groups a pass of that corpus
+RING_STALL_CYCLES = 16_000_000_000  # ~8 s of the card's clock
 BENCH_TIMEOUT_S = 420
 VERIFY_TIMEOUT_S = 600  # tools/gpu_verify.py, start-up included
 MESH_SHARDS = (1, 2, 4, 7)  # shard counts of phase 12 on one card
@@ -722,11 +732,12 @@ def assert_native_extractor(clip, data, scope, want_slots):
 
 def phase_main_path(dev, Bs, clips):
     """The port's main path on real clips, held to the host codec.  Returns
-    (timings, launches of lane_encode_streams_idx by entry point)."""
+    ({(clip, B): the container, equal to codec.compress}, launches of
+    lane_encode_streams_idx by entry point)."""
     datas = [open(os.path.join(ROOT, "data", c), "rb").read() for c in clips]
     for clip, data in zip(clips, datas):
         assert_native_extractor(clip, data, "gop", want_slots=False)
-    timings = []
+    containers = {}
     launches = {"device_compress": 0, "device_compress_corpus": 0}
     for B in Bs:
         per_file = []
@@ -748,6 +759,7 @@ def phase_main_path(dev, Bs, clips):
                 f"byte-identical, roundtrips both decoders "
                 f"(device_compress {dt * 1e3:.1f} ms)")
             per_file.append(out)
+            containers[clip, B] = out
         stats = {}
         t0 = time.time()
         before = tlc.lane_encode_streams_idx.launches
@@ -758,12 +770,11 @@ def phase_main_path(dev, Bs, clips):
         dt = time.time() - t0
         if outs != per_file:
             raise AssertionError(f"B={B}: corpus != per-file containers")
-        timings.append((B, dt, stats))
         log(f"corpus B={B}: {len(outs)} containers equal per-file, "
             f"{stats['bins']} bins, {stats['dispatches']} dispatches, "
             f"{dt:.3f} s = {len(outs) / dt:.2f} containers/s, "
             f"{stats['bins'] / dt:.4g} bins/s (host clock)")
-    return timings, launches
+    return containers, launches
 
 
 def tiled_problem(clips, L, B):
@@ -1161,13 +1172,19 @@ def phase_est_full(dev, clips, S, card):
     prob = tec.from_numpy_traces(*tec.pack_rows(traces, S, T, NS), dev)
     got = tec.est_encode(*prob)
     k1 = cuda_ms(lambda: tec.est_encode(*prob), 3)
+    # the plain version once on the distinct base traces, padded alike
+    # (rows are independent): row r of the problem is base row r % len(base)
+    base_prob = tec.from_numpy_traces(
+        *tec.pack_rows(base, len(base), T, NS), dev)
     ref = []
-    plain = cuda_ms(lambda: ref.append(tec.est_encode_plain(*prob)), 1)
+    plain = cuda_ms(lambda: ref.append(tec.est_encode_plain(*base_prob)), 1)
     k2 = cuda_ms(lambda: tec.est_encode(*prob), 3)
-    err = max_abs_diff(got, ref[0])
-    if err or not all(torch.equal(a, b) for a, b in zip(got, ref[0])):
+    rows = torch.arange(S, device=dev) % len(base)
+    want = [x[rows] for x in ref[0]]
+    err = max_abs_diff(got, want)
+    if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("est full size: kernel tokens != plain tokens")
-    if streams != tec.finalize_streams(*(t.cpu() for t in ref[0])):
+    if streams != tec.finalize_streams(*(t.cpu() for t in want)):
         raise AssertionError("est full size: encode_traces_est streams differ")
     n_tokens = int(got[2].sum())
     ms = (k1 + k2) / 2
@@ -1184,10 +1201,11 @@ def phase_est_full(dev, clips, S, card):
         f"{k2:.3f} ms (mean {ms:.3f} ms, {n_bins / (ms / 1e3):.4g} bins/s), "
         f"of which the kernel alone {kernel_only:.3f} ms, the zero fill of "
         f"tok and car {fill:.3f} ms, the range check {check:.3f} ms; plain "
-        f"{plain:.1f} ms ({n_bins / (plain / 1e3):.4g} bins/s); bound "
+        f"{plain:.1f} ms on the {len(base)} distinct base traces, which every "
+        f"kernel row equals; bound "
         f"{bound:.3f} ms by {by} ({n_bytes} bytes, {n_tokens} tokens), "
         f"est_encode is at {bound / ms:.1%} of it")
-    del got, ref, prob
+    del got, ref, want, prob, base_prob
 
     data = open(os.path.join(ROOT, "data", "mbaff_b.mkv"), "rb").read()
     longest = max(native.extract(data, "gop", want_slots=True)[3], key=len)
@@ -1777,16 +1795,78 @@ def phase_cli():
         f"bytes), decompressed bytes equal to the input ({len(back)})")
 
 
-def phase_bench():
-    """The port's corpus driver, as a user starts its device section, over
-    more than BENCH_GROUPS full dispatch groups of real traces."""
+def bench_corpus():
+    """Phase 15's corpus: the pinned files (BENCH_SET) and the number of
+    copies of them that passes BENCH_GROUPS full dispatch groups at the
+    bench's B.  Returns (paths, copies, lane rows a copy at that B)."""
     paths = [os.path.join(ROOT, "data", n) for n in BENCH_SET]
     rows = 0
     for p in paths:
         traces = extract_traces(open(p, "rb").read(), scope="gop",
                                 want_slots=False)[3]
         rows += tlc.pack_lanes(traces, bench.CORPUS_B)[0].shape[0]
-    copies = BENCH_GROUPS * tlc.GROUP_ROWS // rows + 1
+    return paths, BENCH_GROUPS * tlc.GROUP_ROWS // rows + 1, rows
+
+
+def group_ring_bytes():
+    """The pinned host memory of the process's group staging buffers, as
+    text: the bytes asked for, and as PyTorch's host caching allocator
+    holds them (each allocation rounded up to a power of two)."""
+    sizes = [t.untyped_storage().nbytes() for ring in tlc._groups.rings.values()
+             for g in ring for t in (g.p1, g.bitw, g.lens)]
+    held = sum(1 << max(n - 1, 0).bit_length() for n in sizes)
+    return (f"all the process's group buffers ({len(sizes) // 3}) pin "
+            f"{sum(sizes)} bytes asked, {held} bytes "
+            f"held")
+
+
+def phase_ring_overrun(dev, hosts):
+    """device_compress_corpus on phase 15's corpus at B = RING_B, with more
+    dispatch groups a pass than the staging ring holds (GROUP_RING of each
+    form), twice: as a user calls it, then with the card held up by a
+    sleep kernel queued first, so that every group's upload waits behind
+    it and a group buffer refilled before its copy had run would send the
+    rows of a later group.  Every pass's containers equal the first pass's
+    and the host codec's (codec.compress of each distinct file; `hosts`
+    holds phase 4's).  Returns the launches of lane_encode_streams_idx."""
+    paths, copies, _ = bench_corpus()
+    datas = [open(p, "rb").read() for p in paths]
+    want = [hosts.get((os.path.basename(p), RING_B)) or codec.compress(
+        d, scope="gop", substream_bins=RING_B) for p, d in zip(paths, datas)]
+    launches = 0
+    first = None
+    for stall in (False, True):
+        stats = {}
+        before = tlc.lane_encode_streams_idx.launches
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        if stall:
+            torch.cuda._sleep(RING_STALL_CYCLES)
+        outs = device_compress_corpus(datas * copies, scope="gop",
+                                      substream_bins=RING_B, device=dev,
+                                      stats=stats)
+        dt = time.time() - t0
+        launches += tlc.lane_encode_streams_idx.launches - before
+        rings = {k: len(r) for k, r in tlc._groups.rings.items()
+                 if k[1] == RING_B}
+        log(f"ring overrun B={RING_B}{', the card stalled first' if stall else ''}"
+            f": {len(outs)} files, {stats['dispatches']} dispatches, "
+            f"{stats['bins']} bins, {dt:.1f} s; group buffers (index form, Bp, "
+            f"rows): {rings}; {group_ring_bytes()}")
+        if first is None:
+            first = outs
+        if (stats["dispatches"] <= tlc.GROUP_RING + 1 or outs != first
+                or outs != want * copies):
+            raise AssertionError("ring overrun: too few groups, or a pass's "
+                                 "containers differ from the first pass's or "
+                                 "from the host codec's")
+    return launches
+
+
+def phase_bench():
+    """The port's corpus driver, as a user starts its device section, over
+    more than BENCH_GROUPS full dispatch groups of real traces."""
+    paths, copies, rows = bench_corpus()
     corpus = paths * copies
     t0 = time.time()
     res = subprocess.run(
@@ -1889,7 +1969,7 @@ def main():
     # (native traces' p1 lie on the squash grid), none of lane_encode,
     # lane_encode_streams or unpack_p1_idx
     _zero_counts()
-    _, idx_paths = phase_main_path(dev, (4096, 16384), MAIN_CLIPS)
+    hosts, idx_paths = phase_main_path(dev, (4096, 16384), MAIN_CLIPS)
     others = {n: getattr(tlc, n).launches for n in (
         "lane_encode_streams", "lane_encode", "unpack_p1_idx")}
     log(f"main path: lane_encode_streams_idx.launches={idx_paths}, {others}")
@@ -1900,6 +1980,10 @@ def main():
     # the u16 form on the same entry point, where p1 leave the squash image
     _zero_counts()
     off_image = phase_off_image(dev)
+    # the corpus path over more groups than the staging ring holds
+    _zero_counts()
+    idx_paths["device_compress_corpus, ring overrun"] = phase_ring_overrun(
+        dev, hosts)
 
     # 5 full-size dispatch: the kernels against plain at full width and
     # depth, both upload forms

@@ -2,61 +2,70 @@
 """Where the time goes in the port's device paths, stage by stage, on one
 GPU.
 
-    python3 chip_stages.py        # from the repository root, one CUDA card
+    python3 chip_stages.py [PART...]   # from the repository root, one CUDA card
 
 Each stage is timed on the host clock with a synchronize after it, the
 least of three runs; the whole call is timed the same way, and once more
 under torch.profiler for the device's busy time (the sum over kernels,
 copies and fills; idle share = 1 - busy / wall, an underestimate where a
 copy overlaps a kernel).  Not a benchmark: no spread, small pinned clips.
+The parts, all of them by default, in this order:
 
-  est path   device_compress(data, scope, substream_bins=0) on rt_ctr.mkv
+  est        device_compress(data, scope, substream_bins=0) on rt_ctr.mkv
              and mbaff_b.mkv at slice and gop scope: extract, pack, upload,
              range check, zero fill, kernel, read-back, finalize, container
-  lane path  lane_streams_device_compact on one full dispatch group
-             [8192, 16384] tiled from the clips' real traces, in both upload
-             forms (u16 p1, and 12-bit squash indices from the native
-             packer): upload, kernel (lane_encode_streams /
-             lane_encode_streams_idx), read-back, slicing; then the ways to
-             bring the group's p1 (268 MB) to the card, and the parts of
-             the read-back
-  lane pack  the clips' real gop traces replicated to a full [8192, 16384]
+  pack       the clips' real gop traces replicated to a full [8192, 16384]
              group: the numpy packer (split_lanes_recs, then pack_p1_idx for
              the index form) and the native one (host/native.lane_pack; its
              u16 form where a p1 leaves the squash image, here one at the
-             group's first bin), each form's upload through the staging
-             ring, and _LaneBatcher._take's concatenation of a group from
-             files' rows
-  corpus     device_compress_corpus on the seven pinned clips at B = 4096
-             and 16384, containers/s, in the index form (the package) and in
-             the u16 form (its packer replaced by split_lanes_recs, the
-             packer before the index form), in turns; each call split into
-             the host time spent in extract_traces (on the worker thread,
-             beside the rest), pack_lanes, lane_dispatch_compact (upload and
-             launch) and lane_collect (the wait for the card and the
-             read-back), medians over the calls
+             group's first bin)
+  group      the host side of that group on the main path: the traces as
+             ~100 files packed straight into the group's staging buffer
+             (LaneBatcher.add_traces), the upload from it, the kernel, the
+             read-back and the envelopes cut from it by offset
+  lane       lane_streams_device_compact on one full dispatch group
+             [8192, 16384] tiled from the clips' real traces, in both upload
+             forms (u16 p1, and 12-bit squash indices from the native
+             packer): upload (the numpy rows through the 32 MiB staging
+             ring, _upload), kernel (lane_encode_streams /
+             lane_encode_streams_idx), read-back, slicing
+  corpus     device_compress_corpus on chip_smoke.py phase 15's corpus (the
+             13 pinned files x ~158 copies) at B = 16384 and 4096, three
+             passes each, each pass's host time by stage (CORPUS_SPLIT):
+             the wait on the prefetched extraction, packing into staging,
+             upload, launch, read-back, the rest of collect, envelopes,
+             serialisation, the rest of the wall; the extraction on the
+             worker thread beside them
+  transfer   the ways to bring the group's p1 (268 MB) to the card, and the
+             parts of the read-back
   decode     device_decompress(blob) on containers of rt_ctr.mkv and
              mbaff_b.mkv at gop scope, v2 (B = 4096) and v1: host model
              pass, pack, upload, kernel, read-back, split, host assembly
 """
 
+import concurrent.futures
 import os
+import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
-from avrecode_tpu_torch import codec
+from avrecode_tpu_torch import bench, codec
 from avrecode_tpu_torch.host import native
+from avrecode_tpu_torch.models.h264_model import _make_envelope
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline
 from avrecode_tpu_torch.utils.container import SCOPE_GOP, SCOPE_SLICE
 from chip_smoke import (
-    CLIPS, FULL_B, FULL_L, MAIN_CLIPS, ROOT, card_line, decompress_stages,
-    lane_stage_split, log, tiled_problem, tiled_trace)
+    BENCH_GROUPS, BENCH_SET, CLIPS, FULL_B, FULL_L, ROOT, card_line,
+    decompress_stages, group_ring_bytes, lane_stage_split, log, tiled_problem,
+    tiled_trace)
 
 RUNS = 3
+CORPUS_BS = (16384, 4096)  # the corpus split's B: the bench's, and ~8 groups
 
 
 class Stages:
@@ -199,8 +208,7 @@ def replicated_traces(clips, L, B):
 
 def lane_pack_stage(dev):
     """The lane pack stage on a full group of real traces, both packers
-    and both forms; each form's upload through the staging ring; the
-    batcher's concatenation of a group from files' rows."""
+    and both forms."""
     traces, owners = replicated_traces(CLIPS, FULL_L, FULL_B)
     n_bins = sum(map(len, traces))
     # the same traces with one p1 off the squash image, at the first bin
@@ -241,92 +249,166 @@ def lane_pack_stage(dev):
         f"of {RUNS}: {st.line()}; ns a bin: "
         + ", ".join(f"{v * 1e6 / n_bins:.2f}" for v in st.best.values()))
 
-    st = Stages()
-    for _ in range(RUNS):
-        for form, p1 in (("u16", p1u16), ("index", p1pk)):
-            st.time(f"upload, {form} form ({p1.nbytes + bitw.nbytes + lens.nbytes} B)",
-                    lambda: [tlc._upload(a, dev) for a in (p1, bitw, lens)])
-    log(f"lane upload through the staging ring, p1 or packed indices, bit "
-        f"words and lens, ms, least of {RUNS}: {st.line()}")
-
-    # a group taken from ~100 files' rows, as the corpus batcher takes it
-    st = Stages()
-    for _ in range(RUNS):
-        for form, p1 in (("u16", p1u16), ("index", p1pk)):
-            bat = pipeline._LaneBatcher(lambda *a: [], FULL_L)
-            cuts = np.linspace(0, FULL_L, 101).astype(int)
-            bat.segs = [[p1[a:b], bitw[a:b], lens[a:b]]
-                        for a, b in zip(cuts[:-1], cuts[1:])]
-            bat.acc = FULL_L
-            st.time(f"_LaneBatcher._take, {form} form",
-                    lambda: bat._take(FULL_L))
-    log(f"lane batcher, a group from 100 files' rows, ms, least of {RUNS}: "
-        f"{st.line()}")
     del owners
 
 
-CORPUS_STAGES = ("extract_traces", "pack_lanes", "lane_dispatch_compact",
-                 "lane_collect")
+def group_stages(dev):
+    """The host side of one full dispatch group on the main path, stage by
+    stage, a synchronize after each: the clips' real gop traces, as ~100
+    files, packed straight into the group's staging buffer
+    (LaneBatcher.add_traces), the upload from it, the kernel, the
+    read-back and the envelopes cut from it by offset; the envelopes equal
+    _make_envelope's of lane_streams_device_compact's streams."""
+    traces, owners = replicated_traces(CLIPS, FULL_L, FULL_B)
+    cuts = np.linspace(0, len(traces), 101).astype(int)
+    files = [traces[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    M = tlc.max_bytes(FULL_B)
+    st = Stages()
+    for _ in range(RUNS):
+        # one group that does not dispatch itself: its stages apart
+        bat = tlc.LaneBatcher(dev, FULL_L + 1)
+        placed = st.time("pack into the group buffer", lambda: [
+            bat.add_traces(f, FULL_B) for f in files])
+        group, n = bat.group, bat.acc
+        bat.group, bat.acc = None, 0
+        prob = st.time("upload", lambda: tlc.upload_group(group, n, dev))
+        code = (tlc.lane_encode_streams_idx if group.index
+                else tlc.lane_encode_streams)
+        got = st.time("kernel", lambda: code(*prob, M))
+        back = st.time("read-back", lambda: tlc.read_group(n, *got))
+        envs = st.time("envelopes", lambda: envelopes(back, placed))
+    p1, bitw, lens, spans = tlc.pack_lanes(traces, FULL_B)
+    streams = tlc.lane_streams_device_compact(p1, bitw, lens, dev)
+    if n != FULL_L or envs != [_make_envelope(streams[a:b])
+                               for a, b in spans]:
+        raise RuntimeError("the group's envelopes differ from "
+                           "lane_streams_device_compact's")
+    log(f"group stages [{FULL_L}, {FULL_B}], {len(files)} files, "
+        f"{len(traces)} traces, form {'index' if group.index else 'u16'}, "
+        f"ms, least of {RUNS}: {st.line()}; host side (all but the kernel) "
+        f"{sum(st.best.values()) - st.best['kernel']:.2f}; "
+        f"{group_ring_bytes()}")
+    del owners
 
 
-def timed(fn, spent, name):
-    """fn, adding the host time of each call to spent[name]."""
-    def run(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
-    return run
+def envelopes(back, placed):
+    """Every trace's envelope, cut by offset from one group's read-back."""
+    got = tlc.GroupStreams([back])
+    return [got.envelope(lo + a, lo + b)
+            for (lo, _), spans in placed for a, b in spans]
 
 
-def corpus_forms(dev):
-    """device_compress_corpus on the pinned clips in both upload forms, in
-    turns (index, u16, u16, index, ...): containers/s on the host clock, and
-    each call's host time by stage (CORPUS_STAGES, wrapped in timers)."""
-    datas = []
-    for c in MAIN_CLIPS:
-        with open(os.path.join(ROOT, "data", c), "rb") as f:
-            datas.append(f.read())
-    for B in (4096, 16384):
-        want = None
-        times = {"index": [], "u16": []}
-        spent = {"index": [], "u16": []}
-        for form in ("index", "u16", "u16", "index") * 5:
-            saved = {n: getattr(pipeline, n) for n in CORPUS_STAGES}
-            stage = {}
-            for n in CORPUS_STAGES:
-                fn = saved[n]
-                if n == "pack_lanes" and form == "u16":
-                    fn = tlc.split_lanes_recs  # the packer before the index form
-                setattr(pipeline, n, timed(fn, stage, n))
+def phase15_corpus():
+    """chip_smoke.py phase 15's corpus: the pinned files (BENCH_SET), as
+    many copies as pass BENCH_GROUPS full dispatch groups at the bench's B
+    (the count chip_smoke.phase_bench takes)."""
+    datas = [open(os.path.join(ROOT, "data", n), "rb").read()
+             for n in BENCH_SET]
+    rows = sum(tlc.pack_lanes(pipeline.extract_traces(
+        d, scope="gop", want_slots=False)[3], bench.CORPUS_B)[0].shape[0]
+        for d in datas)
+    return datas, BENCH_GROUPS * tlc.GROUP_ROWS // rows + 1
+
+
+# (owner, attribute, stage) of a corpus pass's stages
+CORPUS_SPLIT = (
+    (tlc.LaneBatcher, "add_traces", "pack into staging (add_traces)"),
+    (tlc, "upload_group", "upload (copy_)"),
+    (tlc, "dispatch_group", "launch"),
+    (tlc, "read_group", "read-back"),
+    (tlc, "collect_groups", "the rest of collect"),
+    (tlc.GroupStreams, "envelope", "envelopes"),
+    (pipeline, "_serialize", "serialisation"),
+)
+
+
+class Split:
+    """Host time by stage: each wrapped call's time less the time of the
+    wrapped calls inside it (a stack a thread)."""
+
+    def __init__(self):
+        self.spent = {}
+        self.local = threading.local()
+
+    def wrap(self, fn, name):
+        def run(*args, **kwargs):
+            stack = self.local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t0 = time.perf_counter()
             try:
-                before = tlc.lane_encode_streams_idx.launches
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                outs = pipeline.device_compress_corpus(
-                    datas, scope="gop", substream_bins=B, device=dev)
-                times[form].append(time.perf_counter() - t0)
-                took_idx = tlc.lane_encode_streams_idx.launches > before
+                return fn(*args, **kwargs)
             finally:
-                for n, fn in saved.items():
-                    setattr(pipeline, n, fn)
-            spent[form].append(stage)
-            if took_idx != (form == "index") or (want and outs != want):
-                raise RuntimeError(f"corpus {form} form: wrong form or "
-                                   f"containers")
-            want = outs
-        log(f"corpus B={B}, {len(datas)} clips, s a call in turns: "
-            + "; ".join(f"{form} form "
-                        + ", ".join(f"{t:.4f}" for t in ts)
-                        + f", median {np.median(ts):.4f} = "
-                        f"{len(datas) / np.median(ts):.2f} containers/s"
-                        for form, ts in times.items()))
-        log(f"corpus B={B}, host ms a call by stage, median of "
-            f"{len(times['index'])}: "
-            + "; ".join(f"{form} form " + ", ".join(
-                f"{n} {np.median([c.get(n, 0.0) for c in calls]) * 1e3:.2f}"
-                for n in CORPUS_STAGES) for form, calls in spent.items()))
+                dt = time.perf_counter() - t0
+                inner = stack.pop()
+                self.spent[name] = self.spent.get(name, 0.0) + dt - inner
+                if stack:
+                    stack[-1] += dt
+        return run
+
+
+def split_pass(corpus, B, dev):
+    """One device_compress_corpus pass with every stage of CORPUS_SPLIT
+    wrapped in a Split, the extraction on the worker thread and the main
+    thread's wait for it too: (containers, stats, {stage: s}) with the wall
+    time and the rest (the wall less the main thread's stages)."""
+    split = Split()
+    saved = [(pipeline, "extract_traces", pipeline.extract_traces,
+              "extraction (worker thread)")]
+    saved += [(owner, attr, getattr(owner, attr), name)
+              for owner, attr, name in CORPUS_SPLIT]
+    pool = concurrent.futures.ThreadPoolExecutor
+
+    class TimedPool(pool):
+        def submit(self, fn, *args, **kwargs):
+            fut = super().submit(fn, *args, **kwargs)
+            fut.result = split.wrap(fut.result, "extraction wait")
+            return fut
+
+    stats = {}
+    try:
+        for owner, attr, fn, name in saved:
+            setattr(owner, attr, split.wrap(fn, name))
+        concurrent.futures.ThreadPoolExecutor = TimedPool
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = pipeline.device_compress_corpus(
+            corpus, scope="gop", substream_bins=B, device=dev, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        concurrent.futures.ThreadPoolExecutor = pool
+        for owner, attr, fn, _ in saved:
+            setattr(owner, attr, fn)
+    spent = dict(split.spent)
+    worker = spent.pop("extraction (worker thread)", 0.0)
+    spent["the rest"] = wall - sum(spent.values())
+    spent["wall"] = wall
+    spent["extraction (worker thread)"] = worker
+    return outs, stats, spent
+
+
+def corpus_split(dev):
+    """device_compress_corpus on phase 15's corpus at each B of CORPUS_BS,
+    RUNS passes each, split by stage (split_pass); every pass's containers
+    equal the first's."""
+    datas, copies = phase15_corpus()
+    corpus = datas * copies
+    for B in CORPUS_BS:
+        passes, first = [], None
+        for _ in range(RUNS):
+            outs, stats, spent = split_pass(corpus, B, dev)
+            if first is not None and outs != first:
+                raise RuntimeError("corpus: a pass's containers differ")
+            first = outs
+            passes.append(spent)
+        names = list(dict.fromkeys(k for p in passes for k in p))
+        log(f"corpus split B={B}: {len(corpus)} files ({copies} copies of "
+            f"{len(datas)}), {stats['bins']} bins, {stats['dispatches']} "
+            f"dispatches; s a pass, median of {RUNS} (each pass): "
+            + "; ".join(
+                f"{n} {np.median([p.get(n, 0.0) for p in passes]):.4f} ("
+                + ", ".join(f"{p.get(n, 0.0):.4f}" for p in passes) + ")"
+                for n in names))
 
 
 def lane_transfer_parts(dev):
@@ -392,8 +474,11 @@ def decode_stages(dev, clip, B):
 
 
 def main():
+    parts = sys.argv[1:] or list(PARTS)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_stages.py needs an NVIDIA GPU")
+    if set(parts) - set(PARTS):
+        raise SystemExit(f"parts: {' '.join(PARTS)}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     log(f"device: {torch.cuda.get_device_name(0)} ({card_line()})")
@@ -401,16 +486,25 @@ def main():
     with open(os.path.join(ROOT, "data", CLIPS[0]), "rb") as f:
         pipeline.device_compress(f.read(), scope="slice", substream_bins=0,
                                  device=dev)
+    for part in parts:
+        PARTS[part](dev)
+
+
+def est_all(dev):
     for clip in ("rt_ctr.mkv", "mbaff_b.mkv"):
         for scope in ("slice", "gop"):
             est_stages(dev, clip, scope)
-    lane_pack_stage(dev)
-    lane_stages(dev)
-    corpus_forms(dev)
-    lane_transfer_parts(dev)
+
+
+def decode_all(dev):
     for clip in ("rt_ctr.mkv", "mbaff_b.mkv"):
         for B in (4096, 0):
             decode_stages(dev, clip, B)
+
+
+PARTS = {"est": est_all, "pack": lane_pack_stage, "group": group_stages,
+         "lane": lane_stages, "corpus": corpus_split,
+         "transfer": lane_transfer_parts, "decode": decode_all}
 
 
 if __name__ == "__main__":

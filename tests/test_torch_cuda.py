@@ -15,6 +15,7 @@ import torch
 
 from avrecode_tpu_torch import codec
 from avrecode_tpu_torch.host import native
+from avrecode_tpu_torch.models.h264_model import _make_envelope
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.ops import lane_decoder as tld
@@ -222,6 +223,62 @@ def test_dispatch_does_not_wait_for_the_device(cuda, monkeypatch):
     assert not done.query()  # the dispatch came back while the card slept
     assert tlc.lane_collect(pending) == tlc.lane_streams_device_compact(
         p1u16, bitw, lens, "cpu")
+
+
+@pytest.mark.parametrize("ring", [1, 3])
+def test_group_buffers_are_reused_safely(cuda, monkeypatch, ring):
+    """Groups of different contents filled into a ring of `ring` pinned
+    group buffers that the fills come round to again, while a sleep kernel
+    keeps every upload waiting: three through a LaneBatcher on the current
+    stream, one each through batchers on two streams of their own.  Every
+    lane's envelope equals the CPU route's."""
+    monkeypatch.setattr(tlc, "GROUP_RING", ring)
+    monkeypatch.setattr(tlc, "_groups", tlc._GroupRing())
+    groups = [_problem(kind, 300, 2048, seed=s)
+              for s, kind in enumerate(["random", "carry", "random", "carry",
+                                        "random"])]
+    want = [tlc.lane_streams_device_compact(*g, "cpu", bits_per_byte=1)
+            for g in groups]
+    torch.cuda._sleep(int(2e9))  # about a second of device time
+    bat = tlc.LaneBatcher(cuda, 300)
+    runs = [(bat, [bat.add(*g) for g in groups[:3]], want[:3], None)]
+    assert len(bat.pending) == 3
+    for g, w in zip(groups[3:], want[3:]):
+        s = torch.cuda.Stream(cuda)
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            b = tlc.LaneBatcher(cuda, 300)
+            runs.append((b, [b.add(*g)], [w], s))
+    assert [len(r) for r in tlc._groups.rings.values()] == [ring]
+    for k, (b, placed, ws, s) in enumerate(runs):
+        with torch.cuda.stream(s):
+            got = b.finish()
+        for (lo, hi), w in zip(placed, ws):
+            assert [got.envelope(l, l + 1) for l in range(lo, hi)] == [
+                _make_envelope([x]) for x in w], f"batcher {k}"
+
+
+def test_group_dispatch_does_not_wait_for_the_device(cuda):
+    """No host sync between a batcher's pack and its launch: with the
+    ring's buffers pinned and free, a group dispatched while the card
+    sleeps comes back before the sleep ends."""
+    p1u16, bitw, lens = _problem("random", 64, 1024, seed=4)
+    for _ in range(tlc.GROUP_RING):  # build, pin the ring's buffers
+        warm = tlc.LaneBatcher(cuda, 64)
+        warm.add(p1u16, bitw, lens)
+        warm.finish()
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(int(2e9))  # about a second of device time
+    done.record()
+    bat = tlc.LaneBatcher(cuda, 64)
+    bat.add(p1u16, bitw, lens)
+    assert len(bat.pending) == 1
+    assert not done.query()  # the dispatch came back while the card slept
+    got = bat.finish()
+    assert [got.envelope(l, l + 1) for l in range(64)] == [
+        _make_envelope([x]) for x in tlc.lane_streams_device_compact(
+            p1u16, bitw, lens, "cpu")]
 
 
 def test_streams_kernel_rejects_misaligned_p1(cuda):

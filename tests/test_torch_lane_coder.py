@@ -251,10 +251,13 @@ def test_dispatch_handles_and_collect_on_cpu():
 def test_dispatch_has_no_host_sync():
     """The only waits for the device on the lane path are in lane_collect
     (read_group): the dispatch side reads no tensor back.  (A staging
-    buffer's event wait in _Staging._next is a wait for an upload that read
-    the buffer, taken only when every buffer of the ring is in flight.)"""
+    buffer's event wait in _Staging._next or _GroupRing.take is a wait for
+    an upload that read the buffer, taken only when the ring comes round to
+    it.)"""
     for fn in (tlc.lane_dispatch_compact, tlc.lane_encode_streams,
-               tlc._upload, tlc._Staging.upload):
+               tlc._upload, tlc._Staging.upload, tlc.dispatch_group,
+               tlc.upload_group, tlc._launch, tlc.LaneBatcher.add,
+               tlc.LaneBatcher.add_traces, tlc.LaneBatcher._flush):
         src = inspect.getsource(fn)
         for sync in (".cpu(", ".item(", "bool(", ".tolist(", ".numpy(",
                      "synchronize("):

@@ -18,6 +18,7 @@ from avrecode_tpu.ops import lane_coder as jlc
 from avrecode_tpu_torch import codec
 from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.host.native import NativeTrace
+from avrecode_tpu_torch.models.h264_model import _make_envelope
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline as tpipe
 from chip_smoke import squash_lanes
@@ -257,16 +258,15 @@ def test_streams_idx_wrapper_checks_the_problem():
 
 
 def _spy_collect(monkeypatch):
-    """Record the upload form of every group lane_collect drains."""
+    """Record the upload form of every group collect_groups drains."""
     forms = []
-    real = tlc.lane_collect
+    real = tlc.collect_groups
 
     def collect(pending):
         forms.extend(str(h[5][0].dtype) for h in pending)
         return real(pending)
 
-    monkeypatch.setattr(tlc, "lane_collect", collect)
-    monkeypatch.setattr(tpipe, "lane_collect", collect)
+    monkeypatch.setattr(tlc, "collect_groups", collect)
     return forms
 
 
@@ -302,22 +302,18 @@ def test_batcher_keeps_the_forms_apart(needs_native):
              tlc.pack_lanes(traces[2:3], 256)[:3]]
     files = [tuple(a[:5] for a in f) for f in files]  # quick on the CPU
     assert [f[0].dtype for f in files] == [np.uint8, np.uint16, np.uint8]
-    groups = []
-
-    def dispatch(p, w, l):
-        groups.append((p.dtype, p.shape[0]))
-        return tlc.lane_dispatch_compact(p, w, l, "cpu")
-
-    bat = tpipe._LaneBatcher(dispatch, 4)
+    bat = tlc.LaneBatcher("cpu", 4)
     for f in files:
         bat.add(*f)
     got = bat.finish()
-    assert groups == [(np.uint8, 4), (np.uint8, 1), (np.uint16, 4),
-                      (np.uint16, 1), (np.uint8, 4), (np.uint8, 1)]
+    assert [(h[5][0].dtype, h[0]) for h in bat.pending] == [
+        (torch.uint8, 4), (torch.uint8, 1), (torch.uint16, 4),
+        (torch.uint16, 1), (torch.uint8, 4), (torch.uint8, 1)]
     want = []
     for f in files:
         want += tlc.lane_streams_device_compact(*f, "cpu")
-    assert got == want
+    assert [got.envelope(l, l + 1) for l in range(len(want))] == [
+        _make_envelope([s]) for s in want]
 
 
 def test_valid_zero_p1_takes_u16_and_codes_zero(needs_native):

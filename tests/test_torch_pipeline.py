@@ -14,6 +14,7 @@ from avrecode_tpu import codec
 from avrecode_tpu.host import native
 from avrecode_tpu.ops import lane_coder as jlc
 from avrecode_tpu.parallel import pipeline as jpipe
+from avrecode_tpu_torch.models.h264_model import _make_envelope
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline as tpipe
 
@@ -83,13 +84,14 @@ def test_lane_batcher_matches_per_file():
     p1u16, bitw, lens = p1u16[:16], bitw[:16], lens[:16]
     per_file = tlc.lane_streams_device_compact(p1u16, bitw, lens, "cpu")
 
-    def dispatch(p, w, l):
-        return tlc.lane_dispatch_compact(p, w, l, "cpu")
-
-    bat = tpipe._LaneBatcher(dispatch, 2)
+    bat = tlc.LaneBatcher("cpu", 2)
     ranges = [bat.add(p1u16[lo:lo + 3], bitw[lo:lo + 3], lens[lo:lo + 3])
               for lo in range(0, p1u16.shape[0], 3)]
-    assert bat.finish() == per_file
+    got = bat.finish()
+    assert [h[0] for h in bat.pending] == [2] * 8
+    assert [got.envelope(l, l + 1) for l in range(16)] == [
+        _make_envelope([s]) for s in per_file]
+    assert got.envelope(0, 16) == _make_envelope(per_file)
     assert ranges[0][0] == 0 and ranges[-1][1] == p1u16.shape[0]
 
 

@@ -104,6 +104,16 @@ def _packs(blob):
     return packs
 
 
+def test_tsan_shared_buffer_packs(run):
+    """Two lane packs at once into one set of buffers at disjoint row
+    offsets (the index form at row 0, the u16 form after it, as the lane
+    batcher points the packer at a group's fill row): no report, each
+    equal to the same pack into buffers of its own."""
+    out, _ = run
+    shared = [ln for ln in out.splitlines() if ln.startswith("shared pack ")]
+    assert len(shared) == 1 and shared[0].endswith("forms=1,0 equal"), out
+
+
 def test_tsan_threaded_paths(run):
     """No report; every clip packed at both B and once off the squash
     image, in the form its p1 call for, and the small B on several
