@@ -32,6 +32,7 @@ shrinks silently.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import resource
@@ -186,18 +187,30 @@ def card(dev):
     return name, limit
 
 
+def containers_digest(comps):
+    """One hash over a pass's containers, each with its length."""
+    h = hashlib.sha256()
+    for c in comps:
+        h.update(len(c).to_bytes(8, "little"))
+        h.update(c)
+    return h.hexdigest()
+
+
 def device_corpus(paths, device=None, substream_bins=CORPUS_B):
     """The device section (runs inside the subprocess): PASSES timed passes
     of device_compress_corpus over `paths`; every container of the last
-    pass decompressed by the native decoder and compared with its file; the
-    stage split on the largest file.  Raises when a CUDA pass did not
-    launch the fused lane kernel once a dispatch group."""
+    pass decompressed by the native decoder and compared with its file,
+    and every pass's containers held to the last pass's by a hash taken
+    after the pass's clock stops; the stage split on the largest file.
+    Raises when a CUDA pass did not launch the fused lane kernel once a
+    dispatch group, or when a pass's containers differ from the last
+    pass's."""
     dev = resolve_device(device)
     ensure_native()
     if dev.type == "cuda":
         _build.load()
     fused = (lane_coder.lane_encode_streams_idx, lane_coder.lane_encode_streams)
-    pass_s, launches, overflows = [], [], []
+    pass_s, launches, overflows, digests = [], [], [], []
     for i in range(PASSES):
         stats = {}
         n0 = sum(k.launches for k in fused)
@@ -207,6 +220,7 @@ def device_corpus(paths, device=None, substream_bins=CORPUS_B):
             paths, scope="gop", substream_bins=substream_bins, device=dev,
             stats=stats)
         pass_s.append(time.perf_counter() - t0)
+        digests.append(containers_digest(comps))
         launches.append(sum(k.launches for k in fused) - n0)
         overflows.append(lane_coder.lane_collect.overflows - o0)
         log(f"device corpus pass {i + 1}: {pass_s[-1]:.3f} s, "
@@ -216,6 +230,11 @@ def device_corpus(paths, device=None, substream_bins=CORPUS_B):
             raise RuntimeError(
                 f"pass {i + 1}: {launches[-1]} fused lane kernel launches for "
                 f"{stats['dispatches']} dispatch groups")
+    differ = [i + 1 for i, d in enumerate(digests) if d != digests[-1]]
+    if differ:
+        raise RuntimeError(
+            f"pass {', '.join(map(str, differ))} of {PASSES}: containers "
+            "differ from the last pass's")
     files = []
     total_in = total_out = failures = 0
     for p, comp in zip(paths, comps):

@@ -1,6 +1,7 @@
 // TSan driver for the threaded native paths of the port's host library
 // (build: `make -C avrecode_tpu_torch/host tsan_driver`, into
-// build/torch_host/; run: `tsan_driver <packs.bin> <clip> <clip> <clip>...`).
+// build/torch_host/; run:
+// `tsan_driver [-w WINDOW] <packs.bin> <clip> <clip> <clip>...`).
 //
 // Exercises everything that spawns threads in libavtpu under
 // -fsanitize=thread:
@@ -13,18 +14,21 @@
 //                           several threads and at B = 4096, and again with
 //                           one p1 moved off the squash image so that the
 //                           second (u16) pass runs
-//   - the corpus overlap of parallel/pipeline.py::device_compress_corpus: a
-//     std::thread extracts clip k + 1 with threads while this thread packs
-//     clip k's records, over every clip in turn;
+//   - the extraction window of parallel/pipeline.py::device_compress_corpus:
+//     up to WINDOW extractions at once (-w, default 2; the test passes the
+//     pipeline's EXTRACT_WINDOW), each on a std::thread of its own with its
+//     GOP threads, taken in order while this thread packs file k's records
+//     and closes its handle as the others still extract; the clips in
+//     turn, over at least WINDOW + 2 files so that the window refills;
 //   - two avtpu_lane_pack calls at once into one set of buffers at disjoint
 //     row offsets, as ops/lane_coder.py::LaneBatcher points the packer at a
 //     dispatch group's fill row: clip 0 in the index form at row 0, clip 1
 //     with a p1 off the squash image (its u16 pass) at the row after, each
 //     equal to the same pack into buffers of its own.
-// Every pack prints its rows and threads and appends its output to
-// <packs.bin> (see pack), which the test compares with the Python
-// packers.  Exit 0 = clean; TSan reports make the process exit non-zero
-// through TSAN_OPTIONS=exitcode (set by the test).
+// Every pack of the first pass over the clips prints its rows and threads
+// and appends its output to <packs.bin> (see pack), which the test
+// compares with the Python packers.  Exit 0 = clean; TSan reports make the
+// process exit non-zero through TSAN_OPTIONS=exitcode (set by the test).
 
 #include <algorithm>
 #include <cstdint>
@@ -153,10 +157,11 @@ std::vector<int64_t> lane_starts(const std::vector<int64_t>& n, int B,
 }
 
 // one avtpu_lane_pack call over the traces, the lanes laid out as
-// host/native.py::lane_pack lays them out.  Appends to `out` ten int64
-// (clip, variant, B, Bp, L, form, threads, moved trace, moved record, 0),
-// then bitw int32 [L, Bp / 32], lens int32 [L] and pk uint8
-// [L, 3 * Bp / 2] (form 1) or p1 uint16 [L, Bp] (form 0).
+// host/native.py::lane_pack lays them out.  Unless `out` is null, prints
+// the pack and appends to `out` ten int64 (clip, variant, B, Bp, L, form,
+// threads, moved trace, moved record, 0), then bitw int32 [L, Bp / 32],
+// lens int32 [L] and pk uint8 [L, 3 * Bp / 2] (form 1) or p1 uint16
+// [L, Bp] (form 0).
 void pack(FILE* out, int clip, int variant, const std::vector<const uint64_t*>& recs,
           const std::vector<int64_t>& n, int B, int64_t moved_t,
           int64_t moved_r) {
@@ -170,12 +175,13 @@ void pack(FILE* out, int clip, int variant, const std::vector<const uint64_t*>& 
       avtpu_lane_pack(recs.data(), n.data(), lane0.data(), (int)n.size(), B,
                       Bp, L, pk.data(), p1.data(), bitw.data(), lens.data());
   const int threads = avtpu_lane_pack_threads(L);
-  printf("pack clip=%d variant=%d B=%d rows=%lld threads=%d form=%d\n", clip,
-         variant, B, (long long)L, threads, form);
   if (form < 0) {
     fprintf(stderr, "FAIL: lane_pack refused its shapes\n");
     exit(1);
   }
+  if (!out) return;
+  printf("pack clip=%d variant=%d B=%d rows=%lld threads=%d form=%d\n", clip,
+         variant, B, (long long)L, threads, form);
   const int64_t head[10] = {clip, variant, B,       Bp,      L,
                             form, threads, moved_t, moved_r, 0};
   fwrite(head, sizeof head, 1, out);
@@ -278,8 +284,15 @@ void shared_packs(const Extracted& x0, const Extracted& x1, const char* clip) {
 }  // namespace
 
 int main(int argc, char** argv) {
-  if (argc < 5) {
-    fprintf(stderr, "usage: %s <packs.bin> <clip> <clip> <clip>...\n",
+  int window = 2;
+  if (argc > 2 && strcmp(argv[1], "-w") == 0) {
+    window = atoi(argv[2]);
+    argv += 2;
+    argc -= 2;
+  }
+  if (argc < 5 || window < 1) {
+    fprintf(stderr,
+            "usage: %s [-w WINDOW] <packs.bin> <clip> <clip> <clip>...\n",
             argv[0]);
     return 2;
   }
@@ -301,24 +314,31 @@ int main(int argc, char** argv) {
       fail("concurrent compress calls differ from serial", argv[2]);
   }
 
-  // the corpus overlap: extract clip k + 1 on a thread while clip k packs
+  // the corpus window: files k + 1 .. k + window extract while file k
+  // packs; file k + window starts once file k's extraction has ended
   FILE* out = fopen(argv[1], "wb");
   if (!out) {
     perror(argv[1]);
     return 2;
   }
-  Extracted cur = extract(in[0]);
-  for (int k = 0; k < n_clips; k++) {
-    if (!cur.handle) fail("xopen returned null", argv[2 + k]);
-    Extracted next;
-    std::thread ahead;
-    if (k + 1 < n_clips) ahead = std::thread([&] { next = extract(in[k + 1]); });
-    pack_clip(out, k, cur);
-    if (ahead.joinable()) ahead.join();
-    avtpu_xclose(cur.handle);
-    cur = next;
+  const int n_files = std::max(n_clips, window + 2);
+  std::vector<Extracted> files(n_files);
+  std::vector<std::thread> extracting(n_files);
+  auto start = [&](int k) {
+    extracting[k] =
+        std::thread([&, k] { files[k] = extract(in[k % n_clips]); });
+  };
+  for (int k = 0; k < std::min(window, n_files); k++) start(k);
+  for (int k = 0; k < n_files; k++) {
+    extracting[k].join();
+    if (k + window < n_files) start(k + window);
+    if (!files[k].handle) fail("xopen returned null", argv[2 + k % n_clips]);
+    pack_clip(k < n_clips ? out : nullptr, k % n_clips, files[k]);
+    avtpu_xclose(files[k].handle);
+    files[k] = Extracted();
   }
   fclose(out);
+  printf("corpus window=%d files=%d\n", window, n_files);
 
   Extracted x0 = extract(in[0]), x1 = extract(in[1]);
   if (!x0.handle || !x1.handle) fail("xopen returned null", argv[2]);

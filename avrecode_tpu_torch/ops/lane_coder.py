@@ -926,16 +926,36 @@ lane_collect.overflows = 0
 class GroupStreams:
     """The streams of read-back groups (collect_groups' result) over the
     global rows, groups in dispatch order; a lane's bytes are taken by
-    offset into its group's flat bytes, with no bytes object a lane."""
+    offset into its group's flat bytes, with no bytes object a lane.
+    Groups are added one at a time as they are read back (add), and
+    dropped once no envelope will be cut from them again (trim)."""
 
-    def __init__(self, groups):
+    def __init__(self, groups=()):
         self.starts = [0]  # global row of each group's first lane
         self.nbs, self.ws, self.flats = [], [], []
-        for nb, w, flat in groups:
-            self.nbs.append(nb.tolist())
-            self.ws.append(w)
-            self.flats.append(memoryview(flat))
-            self.starts.append(self.starts[-1] + len(nb))
+        self.first = 0  # the first group not trimmed
+        for got in groups:
+            self.add(*got)
+
+    @property
+    def end(self):
+        """The global row after the last lane read back."""
+        return self.starts[-1]
+
+    def add(self, nb, w, flat):
+        """Append the next group's read_group result."""
+        self.nbs.append(nb.tolist())
+        self.ws.append(w)
+        self.flats.append(memoryview(flat))
+        self.starts.append(self.starts[-1] + len(nb))
+
+    def trim(self, row):
+        """Let go of the bytes of every group that ends at or before the
+        global row `row`: envelopes are cut only from rows past it."""
+        while (self.first < len(self.flats)
+               and self.starts[self.first + 1] <= row):
+            self.nbs[self.first] = self.flats[self.first] = None
+            self.first += 1
 
     def envelope(self, lo, hi):
         """_make_envelope of the streams of lanes [lo, hi), over memoryview
@@ -973,6 +993,7 @@ class LaneBatcher:
         self.acc = 0  # its rows filled
         self.index = True  # the form of the next group
         self.pending = []  # dispatched group handles, global row order
+        self.dispatches = 0  # groups dispatched
         self.rows = 0  # total rows appended
 
     def _current(self, index, Bp):
@@ -983,8 +1004,7 @@ class LaneBatcher:
             if self.acc:
                 self._flush()
             else:
-                _groups.release(g)
-                self.group = None
+                self.close()
         if self.group is None:
             self.group = _groups.take(index, Bp, self.big, self.dev)
             self.index = index
@@ -993,6 +1013,7 @@ class LaneBatcher:
     def _flush(self):
         self.pending.append(dispatch_group(self.group, self.acc, self.dev))
         self.group, self.acc = None, 0
+        self.dispatches += 1
 
     def add(self, p1, bitw, lens):
         """Append one file's numpy rows (p1 in either upload form), copied
@@ -1046,15 +1067,53 @@ class LaneBatcher:
             self._flush()
         return (lo, self.rows), spans
 
+    def _dispatch_rest(self):
+        """Dispatch the rows that wait; an empty group goes back."""
+        if self.acc:
+            self._flush()
+        self.close()
+
+    def close(self):
+        """Give the group being filled back to the ring, its rows unsent
+        (after a failure, or when nothing waits)."""
+        if self.group is not None:
+            _groups.release(self.group)
+            self.group, self.acc = None, 0
+
     def finish(self):
         """Dispatch the rows that wait, then read every group back:
         GroupStreams over the global rows."""
-        if self.acc:
-            self._flush()
-        elif self.group is not None:
-            _groups.release(self.group)
-            self.group = None
+        self._dispatch_rest()
         return GroupStreams(collect_groups(self.pending))
+
+
+class StreamingBatcher(LaneBatcher):
+    """A LaneBatcher that reads its groups back as it goes: before each
+    dispatch, every group dispatched before is read into `streams` (its
+    kernel ran while this group filled) and its device tensors let go, so
+    at most one dispatched group waits on the card and its memory does not
+    grow with the corpus.  The groups, their rows and the bytes read back
+    are the LaneBatcher's."""
+
+    def __init__(self, device, big=None):
+        super().__init__(device, big)
+        self.streams = GroupStreams()
+
+    def _read(self):
+        for got in collect_groups(self.pending):
+            self.streams.add(*got)
+        self.pending = []
+
+    def _flush(self):
+        self._read()
+        super()._flush()
+
+    def finish(self):
+        """Dispatch the rows that wait and read the last group back:
+        `streams`, over every row appended."""
+        self._dispatch_rest()
+        self._read()
+        return self.streams
 
 
 def lane_streams_device_compact(p1, bitw, lens, device=None,

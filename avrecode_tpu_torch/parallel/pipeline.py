@@ -36,7 +36,9 @@ container on the device (ops/lane_decoder.py) between two host passes, and
 returns bytes identical to codec.decompress(blob).
 """
 
+import collections
 import concurrent.futures
+import os
 
 import numpy as np
 import torch
@@ -58,7 +60,7 @@ from ..ops.estimator import pack_stream_rows
 from ..ops import lane_decoder
 from ..ops.lane_coder import (
     CHUNK,
-    LaneBatcher,
+    StreamingBatcher,
     auto_substream_bins,
     encode_traces_lanes,
     lane_collect,
@@ -241,24 +243,67 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
                       substream_bins)
 
 
+# Extractions of device_compress_corpus in flight at once, on a thread pool
+# (the native extractor releases the GIL): one a core, and at least two so
+# that a file extracts while the one before it packs.  Each keeps the
+# extractor's own GOP threads, which spread a large file over the cores
+# where the window is not full (chip_stages.py window measures both).
+EXTRACT_WINDOW = max(2, os.cpu_count() or 1)
+
+
+def _read(x):
+    return open(x, "rb").read() if isinstance(x, str) else bytes(x)
+
+
+def _drop_traces(blocks, traces):
+    """blocks with each trace replaced by a placeholder object, and the
+    placeholders in traces' order: all that _serialize needs of a file
+    once its lanes are packed (the records, and the native buffer that
+    holds them, can go)."""
+    stub = {id(t): object() for t in traces}
+    blocks = [
+        (*b[:6], stub[id(b[6])], *b[7:])
+        if b[0] == KIND_SLICE and not isinstance(b[6], bytes) else b
+        for b in blocks
+    ]
+    return blocks, list(stub.values())
+
+
+def _pack_file(batcher, extracted, substream_bins):
+    """Append one extracted file's lanes to the batcher.  Returns (bins,
+    its global rows, what serialisation needs: (sps, pps, blocks,
+    placeholders, spans)); rows None for a file without traces."""
+    sps, pps, blocks, traces, _ = extracted
+    if not traces:
+        return 0, None, None
+    rows, spans = batcher.add_traces(traces, substream_bins)
+    blocks, stubs = _drop_traces(blocks, traces)
+    return sum(len(t) for t in traces), rows, (sps, pps, blocks, stubs, spans)
+
+
 def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
                            device=None, stats=None):
     """Batch-directory device compression: compress many files through ONE
-    overlapped device pipeline instead of per-file device_compress calls.
+    streaming device pipeline instead of per-file device_compress calls.
 
-    Per file the host extracts, then packs its lanes straight into the
-    cross-file batcher's dispatch group (ops/lane_coder.LaneBatcher); full
-    groups launch as they fill, while a worker thread extracts the next
-    file (one-deep prefetch; the native extractor and packer release the
-    GIL).  After the last group is read back, each trace's envelope is cut
-    from its group's bytes by offset.  Output containers are
-    byte-identical to device_compress(f, scope=..., substream_bins=...)
-    per file.
+    Up to EXTRACT_WINDOW files extract at once on a thread pool, submitted
+    and taken in one order (largest first), so the batcher's append order,
+    and with it the dispatch groups, do not depend on the window.  Each
+    file's lanes are packed straight into the cross-file batcher's
+    dispatch group (ops/lane_coder.StreamingBatcher); full groups launch as
+    they fill, and each group is read back before the next launches.  A
+    file's traces are let go once packed; its container is serialised as
+    soon as the rows of its lanes are back, each envelope cut by offset
+    from its group's bytes, and a group's bytes are let go once every file
+    in it is serialised.  Output containers are byte-identical to
+    device_compress(f, scope=..., substream_bins=...) per file.
 
-    inputs: list of paths or bytes.  Returns list of container bytes.
-    stats (optional dict) receives {'dispatches': N, 'bins': M}.
-    substream_bins=0 raises ValueError: the corpus path is lane-only, as in
-    the JAX package."""
+    inputs: list of paths or bytes.  Returns list of container bytes, in
+    input order.  stats (optional dict) receives {'dispatches': N,
+    'bins': M}.  substream_bins=0 raises ValueError: the corpus path is
+    lane-only, as in the JAX package.  An exception in a file's extraction
+    or pack propagates as raised, after the extractions not yet started
+    are cancelled and the group being filled is given back."""
     dev = resolve_device(device)
     if not substream_bins:
         raise ValueError(
@@ -266,48 +311,71 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
             "substream_bins > 0, or call device_compress per file for "
             "substream_bins=0"
         )
-    datas = [
-        open(x, "rb").read() if isinstance(x, str) else bytes(x)
-        for x in inputs
-    ]
     scope_id = SCOPE_SLICE if scope == "slice" else SCOPE_GOP
+    sizes = [os.path.getsize(x) if isinstance(x, str) else len(x)
+             for x in inputs]
     # biggest files first: their uploads start while the remaining files
     # extract on the host CPU
-    order = sorted(range(len(datas)), key=lambda i: -len(datas[i]))
+    order = sorted(range(len(inputs)), key=lambda i: -sizes[i])
 
-    metas_by_idx = [None] * len(datas)
-    batcher = LaneBatcher(dev)
+    def extract(i):
+        data = _read(inputs[i])
+        return data, extract_traces(data, scope=scope, want_slots=False)
+
+    outs = [None] * len(inputs)
+    waiting = collections.deque()  # packed files: (index, rows, meta)
+    batcher = StreamingBatcher(dev)
     n_bins = 0
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-        nxt = None
-        for k, idx in enumerate(order):
-            cur = nxt or pool.submit(
-                extract_traces, datas[idx], scope=scope, want_slots=False)
-            nxt = (
-                pool.submit(extract_traces, datas[order[k + 1]], scope=scope,
-                            want_slots=False)
-                if k + 1 < len(order) else None
-            )
-            sps, pps, blocks, traces, _ = cur.result()
-            rows = spans = None
-            if traces:
-                rows, spans = batcher.add_traces(traces, substream_bins)
-                n_bins += sum(len(t) for t in traces)
-            metas_by_idx[idx] = (sps, pps, blocks, traces, spans, rows)
-    # drain all device work
-    got = batcher.finish()
-    outs = []
-    for data, (sps, pps, blocks, traces, spans, rows) in zip(datas,
-                                                             metas_by_idx):
-        if not traces:
-            outs.append(compress(data, scope=scope,
-                                 substream_bins=substream_bins))
-            continue
-        envs = [got.envelope(rows[0] + lo, rows[0] + hi) for lo, hi in spans]
-        outs.append(_serialize(scope_id, sps, pps, blocks, traces, envs,
-                               substream_bins))
+
+    def serialise_ready():
+        got = batcher.streams
+        while waiting and waiting[0][1][1] <= got.end:
+            idx, (lo, _), (sps, pps, blocks, stubs, spans) = waiting.popleft()
+            envs = [got.envelope(lo + a, lo + b) for a, b in spans]
+            outs[idx] = _serialize(scope_id, sps, pps, blocks, stubs, envs,
+                                   substream_bins)
+        got.trim(waiting[0][1][0] if waiting else got.end)
+
+    todo = iter(order)
+    ahead = collections.deque()  # (input index, future), in order
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=EXTRACT_WINDOW)
+
+    def submit():
+        i = next(todo, None)
+        if i is not None:
+            ahead.append((i, pool.submit(extract, i)))
+
+    try:
+        for _ in range(EXTRACT_WINDOW):
+            submit()
+        while ahead:
+            idx, fut = ahead.popleft()
+            submit()
+            try:
+                data, extracted = fut.result()
+            finally:
+                # the future holds the traces, or the exception, whose
+                # traceback holds this frame
+                del fut
+            bins, rows, meta = _pack_file(batcher, extracted, substream_bins)
+            del extracted
+            n_bins += bins
+            if rows is None:
+                outs[idx] = compress(data, scope=scope,
+                                     substream_bins=substream_bins)
+            else:
+                waiting.append((idx, rows, meta))
+            serialise_ready()
+        batcher.finish()
+        serialise_ready()
+    except BaseException:
+        batcher.close()
+        ahead.clear()  # the extracted files' traces
+        raise
+    finally:
+        pool.shutdown(cancel_futures=True)
     if stats is not None:
-        stats["dispatches"] = len(batcher.pending)
+        stats["dispatches"] = batcher.dispatches
         stats["bins"] = n_bins
     return outs
 

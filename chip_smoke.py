@@ -136,6 +136,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -209,6 +210,8 @@ BENCH_SET = MAIN_CLIPS + ["rt_ctr.mp4"] + [n for n, _ in bench.CONFORMANCE]
 BENCH_GROUPS = 2  # full dispatch groups the phase-15 corpus passes
 RING_B = 4096  # the ring check's B: ~8 dispatch groups a pass of that corpus
 RING_STALL_CYCLES = 16_000_000_000  # ~8 s of the card's clock
+RING_PEAK_GROUPS = 3  # a corpus pass's device peak: under 3 groups' inputs
+RSS_EVERY_S = 0.005  # PeakRSS's sampling period
 BENCH_TIMEOUT_S = 420
 VERIFY_TIMEOUT_S = 600  # tools/gpu_verify.py, start-up included
 MESH_SHARDS = (1, 2, 4, 7)  # shard counts of phase 12 on one card
@@ -224,6 +227,43 @@ DECODE_CONTAINERS = [(c, "gop", 4096) for c in CLIPS[:3]] + [
 
 def log(*args):
     print(*args, flush=True)
+
+
+class PeakRSS:
+    """The process's peak resident set while the block runs, sampled from
+    /proc/self/status (VmRSS) on a thread every RSS_EVERY_S: `before` and
+    `peak` in bytes."""
+
+    def __init__(self):
+        self.before = self.peak = 0
+        self._stop = threading.Event()
+
+    @staticmethod
+    def now():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _sample(self):
+        while not self._stop.wait(RSS_EVERY_S):
+            self.peak = max(self.peak, self.now())
+
+    def __enter__(self):
+        self.before = self.peak = self.now()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.now())
+
+    def text(self):
+        return (f"peak RSS {self.peak / 1e9:.3f} GB ({self.before / 1e9:.3f} "
+                "GB before)")
 
 
 class PhaseClock:
@@ -1828,30 +1868,42 @@ def phase_ring_overrun(dev, hosts):
     it and a group buffer refilled before its copy had run would send the
     rows of a later group.  Every pass's containers equal the first pass's
     and the host codec's (codec.compress of each distinct file; `hosts`
-    holds phase 4's).  Returns the launches of lane_encode_streams_idx."""
+    holds phase 4's).  Each pass's peak device memory above what was
+    allocated before it stays under RING_PEAK_GROUPS groups' inputs in the
+    index form (the groups are read back as they go, so it does not grow
+    with their count); its peak RSS is printed.  Returns the launches of
+    lane_encode_streams_idx."""
     paths, copies, _ = bench_corpus()
     datas = [open(p, "rb").read() for p in paths]
     want = [hosts.get((os.path.basename(p), RING_B)) or codec.compress(
         d, scope="gop", substream_bins=RING_B) for p, d in zip(paths, datas)]
+    Bp = -(-RING_B // tlc.CHUNK) * tlc.CHUNK
+    group_inputs = tlc.GROUP_ROWS * (3 * Bp // 2 + Bp // 8 + 4)
     launches = 0
     first = None
     for stall in (False, True):
         stats = {}
         before = tlc.lane_encode_streams_idx.launches
         torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        allocated = torch.cuda.memory_allocated(dev)
         t0 = time.time()
-        if stall:
-            torch.cuda._sleep(RING_STALL_CYCLES)
-        outs = device_compress_corpus(datas * copies, scope="gop",
-                                      substream_bins=RING_B, device=dev,
-                                      stats=stats)
+        with PeakRSS() as rss:
+            if stall:
+                torch.cuda._sleep(RING_STALL_CYCLES)
+            outs = device_compress_corpus(datas * copies, scope="gop",
+                                          substream_bins=RING_B, device=dev,
+                                          stats=stats)
         dt = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - allocated
         launches += tlc.lane_encode_streams_idx.launches - before
         rings = {k: len(r) for k, r in tlc._groups.rings.items()
                  if k[1] == RING_B}
         log(f"ring overrun B={RING_B}{', the card stalled first' if stall else ''}"
             f": {len(outs)} files, {stats['dispatches']} dispatches, "
-            f"{stats['bins']} bins, {dt:.1f} s; group buffers (index form, Bp, "
+            f"{stats['bins']} bins, {dt:.1f} s; device peak {peak} bytes "
+            f"above the {allocated} allocated before (a group's inputs "
+            f"{group_inputs}); {rss.text()}; group buffers (index form, Bp, "
             f"rows): {rings}; {group_ring_bytes()}")
         if first is None:
             first = outs
@@ -1860,6 +1912,11 @@ def phase_ring_overrun(dev, hosts):
             raise AssertionError("ring overrun: too few groups, or a pass's "
                                  "containers differ from the first pass's or "
                                  "from the host codec's")
+        if peak >= RING_PEAK_GROUPS * group_inputs:
+            raise AssertionError(
+                f"ring overrun: the pass's device peak, {peak} bytes, is not "
+                f"under {RING_PEAK_GROUPS} groups' inputs "
+                f"({RING_PEAK_GROUPS * group_inputs} bytes)")
     return launches
 
 

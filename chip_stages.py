@@ -31,11 +31,17 @@ The parts, all of them by default, in this order:
              lane_encode_streams_idx), read-back, slicing
   corpus     device_compress_corpus on chip_smoke.py phase 15's corpus (the
              13 pinned files x ~158 copies) at B = 16384 and 4096, three
-             passes each, each pass's host time by stage (CORPUS_SPLIT):
-             the wait on the prefetched extraction, packing into staging,
-             upload, launch, read-back, the rest of collect, envelopes,
-             serialisation, the rest of the wall; the extraction on the
-             worker thread beside them
+             passes each, each pass's host time by stage (CORPUS_SPLIT, the
+             stages the tree has): the main thread's wait on the
+             extractions, packing into staging, upload, launch, read-back,
+             the rest of collect, envelopes, serialisation, the rest of the
+             wall; the extraction summed over the worker threads beside
+             them; the pass's peak RSS (VmRSS sampled on a thread) and its
+             peak device memory (torch.cuda.max_memory_allocated above what
+             was allocated before it)
+  window     the same corpus at B = 16384, at each extraction window of
+             WINDOWS and each extraction's GOP threads of GOP_THREADS, two
+             passes each, split as above
   transfer   the ways to bring the group's p1 (268 MB) to the card, and the
              parts of the read-back
   decode     device_decompress(blob) on containers of rt_ctr.mkv and
@@ -60,12 +66,15 @@ from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline
 from avrecode_tpu_torch.utils.container import SCOPE_GOP, SCOPE_SLICE
 from chip_smoke import (
-    BENCH_GROUPS, BENCH_SET, CLIPS, FULL_B, FULL_L, ROOT, card_line,
+    BENCH_GROUPS, BENCH_SET, CLIPS, FULL_B, FULL_L, ROOT, PeakRSS, card_line,
     decompress_stages, group_ring_bytes, lane_stage_split, log, tiled_problem,
     tiled_trace)
 
 RUNS = 3
 CORPUS_BS = (16384, 4096)  # the corpus split's B: the bench's, and ~8 groups
+WINDOWS = (1, 2, 4, 8, 16)  # extraction windows of the `window` part
+GOP_THREADS = (0, 1)  # an extraction's GOP threads in the `window` part
+WINDOW_RUNS = 2
 
 
 class Stages:
@@ -324,11 +333,13 @@ CORPUS_SPLIT = (
 
 class Split:
     """Host time by stage: each wrapped call's time less the time of the
-    wrapped calls inside it (a stack a thread)."""
+    wrapped calls inside it (a stack a thread); a stage that runs on
+    several threads at once is summed over them."""
 
     def __init__(self):
         self.spent = {}
         self.local = threading.local()
+        self.lock = threading.Lock()
 
     def wrap(self, fn, name):
         def run(*args, **kwargs):
@@ -340,51 +351,107 @@ class Split:
             finally:
                 dt = time.perf_counter() - t0
                 inner = stack.pop()
-                self.spent[name] = self.spent.get(name, 0.0) + dt - inner
+                with self.lock:
+                    self.spent[name] = self.spent.get(name, 0.0) + dt - inner
                 if stack:
                     stack[-1] += dt
         return run
 
 
-def split_pass(corpus, B, dev):
+class TimedFuture:
+    """A future whose result() the Split times; it holds the future, and
+    not the other way round, so that a future let go (with the traces in
+    its result) is freed at once, as the pipeline's own are."""
+
+    def __init__(self, fut, split):
+        self.fut = fut
+        self.result = split.wrap(fut.result, "extraction wait")
+
+    def cancel(self):
+        return self.fut.cancel()
+
+
+def split_pass(corpus, B, dev, window=None, threads=None):
     """One device_compress_corpus pass with every stage of CORPUS_SPLIT
-    wrapped in a Split, the extraction on the worker thread and the main
-    thread's wait for it too: (containers, stats, {stage: s}) with the wall
-    time and the rest (the wall less the main thread's stages)."""
+    that the tree has wrapped in a Split, the extraction on the worker
+    threads (summed over them) and the main thread's wait for it too:
+    (containers, stats, {stage: s}) with the wall time, the rest (the wall
+    less the main thread's stages), the pass's peak RSS and its device
+    peak (bytes above what was allocated before it).  window sets
+    pipeline.EXTRACT_WINDOW, threads each extraction's GOP threads (0 =
+    the extractor's own count), for the pass."""
     split = Split()
-    saved = [(pipeline, "extract_traces", pipeline.extract_traces,
-              "extraction (worker thread)")]
+    extract = pipeline.extract_traces
+    if threads is not None:
+        def extract(data, real=extract, **kw):
+            return real(data, **dict(kw, threads=threads))
+    saved = [(pipeline, "extract_traces", extract,
+              "extraction (worker threads)")]
     saved += [(owner, attr, getattr(owner, attr), name)
-              for owner, attr, name in CORPUS_SPLIT]
+              for owner, attr, name in CORPUS_SPLIT if hasattr(owner, attr)]
+    originals = [(pipeline, "extract_traces", pipeline.extract_traces)] + [
+        (owner, attr, fn) for owner, attr, fn, _ in saved[1:]]
+    if window is not None:
+        originals.append((pipeline, "EXTRACT_WINDOW", pipeline.EXTRACT_WINDOW))
     pool = concurrent.futures.ThreadPoolExecutor
 
     class TimedPool(pool):
         def submit(self, fn, *args, **kwargs):
-            fut = super().submit(fn, *args, **kwargs)
-            fut.result = split.wrap(fut.result, "extraction wait")
-            return fut
+            return TimedFuture(super().submit(fn, *args, **kwargs), split)
 
     stats = {}
     try:
         for owner, attr, fn, name in saved:
             setattr(owner, attr, split.wrap(fn, name))
+        if window is not None:
+            pipeline.EXTRACT_WINDOW = window
         concurrent.futures.ThreadPoolExecutor = TimedPool
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = pipeline.device_compress_corpus(
-            corpus, scope="gop", substream_bins=B, device=dev, stats=stats)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        allocated = torch.cuda.memory_allocated(dev)
+        with PeakRSS() as rss:
+            t0 = time.perf_counter()
+            outs = pipeline.device_compress_corpus(
+                corpus, scope="gop", substream_bins=B, device=dev,
+                stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device_peak = torch.cuda.max_memory_allocated(dev) - allocated
     finally:
         concurrent.futures.ThreadPoolExecutor = pool
-        for owner, attr, fn, _ in saved:
+        for owner, attr, fn in originals:
             setattr(owner, attr, fn)
     spent = dict(split.spent)
-    worker = spent.pop("extraction (worker thread)", 0.0)
+    worker = spent.pop("extraction (worker threads)", 0.0)
     spent["the rest"] = wall - sum(spent.values())
     spent["wall"] = wall
-    spent["extraction (worker thread)"] = worker
+    spent["extraction (worker threads)"] = worker
+    spent["peak RSS GB"] = rss.peak / 1e9
+    spent["RSS before GB"] = rss.before / 1e9
+    spent["device peak GB"] = device_peak / 1e9
     return outs, stats, spent
+
+
+def median_line(passes):
+    """Each key's median over the passes, then every pass's value."""
+    names = list(dict.fromkeys(k for p in passes for k in p))
+    return "; ".join(
+        f"{n} {np.median([p.get(n, 0.0) for p in passes]):.4f} ("
+        + ", ".join(f"{p.get(n, 0.0):.4f}" for p in passes) + ")"
+        for n in names)
+
+
+def corpus_passes(corpus, B, dev, runs, **kw):
+    """`runs` split passes (split_pass); every pass's containers equal the
+    first's.  Returns (stats, [spent])."""
+    passes, first = [], None
+    for _ in range(runs):
+        outs, stats, spent = split_pass(corpus, B, dev, **kw)
+        if first is not None and outs != first:
+            raise RuntimeError("corpus: a pass's containers differ")
+        first = outs
+        passes.append(spent)
+    return stats, passes
 
 
 def corpus_split(dev):
@@ -394,21 +461,29 @@ def corpus_split(dev):
     datas, copies = phase15_corpus()
     corpus = datas * copies
     for B in CORPUS_BS:
-        passes, first = [], None
-        for _ in range(RUNS):
-            outs, stats, spent = split_pass(corpus, B, dev)
-            if first is not None and outs != first:
-                raise RuntimeError("corpus: a pass's containers differ")
-            first = outs
-            passes.append(spent)
-        names = list(dict.fromkeys(k for p in passes for k in p))
+        stats, passes = corpus_passes(corpus, B, dev, RUNS)
         log(f"corpus split B={B}: {len(corpus)} files ({copies} copies of "
             f"{len(datas)}), {stats['bins']} bins, {stats['dispatches']} "
-            f"dispatches; s a pass, median of {RUNS} (each pass): "
-            + "; ".join(
-                f"{n} {np.median([p.get(n, 0.0) for p in passes]):.4f} ("
-                + ", ".join(f"{p.get(n, 0.0):.4f}" for p in passes) + ")"
-                for n in names))
+            f"dispatches, window {getattr(pipeline, 'EXTRACT_WINDOW', 1)}; "
+            f"s a pass, median of {RUNS} (each pass): {median_line(passes)}")
+
+
+def corpus_window(dev):
+    """device_compress_corpus on phase 15's corpus at the bench's B, at
+    each extraction window of WINDOWS and each extraction's GOP threads of
+    GOP_THREADS (0: the extractor's own count, up to 16), WINDOW_RUNS
+    passes each (split_pass)."""
+    datas, copies = phase15_corpus()
+    corpus = datas * copies
+    for threads in GOP_THREADS:
+        for window in WINDOWS:
+            stats, passes = corpus_passes(corpus, bench.CORPUS_B, dev,
+                                          WINDOW_RUNS, window=window,
+                                          threads=threads)
+            log(f"corpus window={window} threads={threads} "
+                f"B={bench.CORPUS_B} ({os.cpu_count()} cores): "
+                f"{stats['dispatches']} dispatches; s a pass, median of "
+                f"{WINDOW_RUNS} (each pass): {median_line(passes)}")
 
 
 def lane_transfer_parts(dev):
@@ -503,7 +578,7 @@ def decode_all(dev):
 
 
 PARTS = {"est": est_all, "pack": lane_pack_stage, "group": group_stages,
-         "lane": lane_stages, "corpus": corpus_split,
+         "lane": lane_stages, "corpus": corpus_split, "window": corpus_window,
          "transfer": lane_transfer_parts, "decode": decode_all}
 
 

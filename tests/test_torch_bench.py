@@ -102,6 +102,32 @@ def test_device_roundtrip_failure_is_counted(monkeypatch, capsys):
     assert line["value"] == 0.0 and line["vs_baseline"] == 0.0
 
 
+def test_a_pass_that_differs_fails_the_device_section(monkeypatch):
+    """Every pass's containers are held to the last pass's: a first pass
+    with one wrong byte raises, though the last pass, the one
+    roundtripped, is right (the device section then exits non-zero)."""
+    real = tpipe.device_compress_corpus
+    first, calls = {}, []
+
+    def flaky(*args, stats=None, **kwargs):
+        if not first:  # one real pass, then its containers again
+            first["comps"] = real(*args, stats=stats, **kwargs)
+            first["stats"] = dict(stats)
+        stats.update(first["stats"])
+        comps = list(first["comps"])
+        calls.append(len(comps))
+        if len(calls) == 1:
+            comps[0] = comps[0][:-1] + bytes([comps[0][-1] ^ 1])
+        return comps
+
+    monkeypatch.setattr(tpipe, "device_compress_corpus", flaky)
+    with pytest.raises(RuntimeError,
+                       match=r"^pass 1 of 3: containers differ from the "
+                             r"last pass's$"):
+        bench.device_corpus(PATHS[3:], device="cpu", substream_bins=SMALL_B)
+    assert calls == [1] * bench.PASSES
+
+
 def test_host_roundtrip_failure_zeroes_the_headline(monkeypatch, capsys,
                                                     corpus_run):
     """One FAIL in the host section zeroes the headline, whatever the clean

@@ -2,8 +2,9 @@
 library (avrecode_tpu_torch/host/drivers/tsan_driver.cc, built by
 host/Makefile's tsan_driver target): GOP-parallel compress and decompress,
 threaded trace extraction, the threaded lane packer (host/src/lanepack.cc)
-in both of its passes, and the overlap of extraction with packing that
-parallel/pipeline.py::device_compress_corpus runs.  The driver's packed
+in both of its passes, and the window of extractions beside packing that
+parallel/pipeline.py::device_compress_corpus runs (EXTRACT_WINDOW at once,
+each handle closed while the files after it still extract).  The driver's packed
 rows are held to the production native.lane_pack and to the numpy packers
 (split_lanes_recs + pack_p1_idx) on the same traces, byte for byte.
 
@@ -23,10 +24,12 @@ import pytest
 from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.host.native import NativeTrace
 from avrecode_tpu_torch.ops import lane_coder as tlc
+from avrecode_tpu_torch.parallel import pipeline as tpipe
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DATA = os.path.join(ROOT, "data")
-# four clips in turn: the overlap extracts clip k + 1 while clip k packs
+# four clips in turn: the corpus window extracts the clips after clip k
+# (EXTRACT_WINDOW of them at once) while clip k packs
 CLIPS = ["mbaff_b.mkv", "rt_ctr.mkv", "cavlc_ipp.mkv", "rt_ctr.avi"]
 HEAD = 10  # int64 fields before each pack's arrays (tsan_driver.cc::pack)
 TSAN_ENV = {"TSAN_OPTIONS": "exitcode=66 halt_on_error=0"}
@@ -64,7 +67,8 @@ def driver():
 def _run(driver, tmp_path, **env):
     packs = tmp_path / "packs.bin"
     r = subprocess.run(
-        [str(driver), str(packs), *(os.path.join(DATA, c) for c in CLIPS)],
+        [str(driver), "-w", str(tpipe.EXTRACT_WINDOW), str(packs),
+         *(os.path.join(DATA, c) for c in CLIPS)],
         capture_output=True, text=True, timeout=600,
         env=dict(os.environ, **TSAN_ENV, **env))
     assert r.returncode == 0, (
@@ -112,6 +116,17 @@ def test_tsan_shared_buffer_packs(run):
     out, _ = run
     shared = [ln for ln in out.splitlines() if ln.startswith("shared pack ")]
     assert len(shared) == 1 and shared[0].endswith("forms=1,0 equal"), out
+
+
+def test_tsan_corpus_window(run):
+    """The corpus window of device_compress_corpus, EXTRACT_WINDOW
+    extractions at once beside the threaded packer, each handle closed
+    while the files after it still extract, over enough files that the
+    window refills: no report."""
+    out, _ = run
+    window = tpipe.EXTRACT_WINDOW
+    want = f"corpus window={window} files={max(len(CLIPS), window + 2)}"
+    assert want in out.splitlines(), out
 
 
 def test_tsan_threaded_paths(run):
