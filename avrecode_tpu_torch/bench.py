@@ -22,7 +22,9 @@ differs:
     pass, and there is no shape warm-up (nothing compiles per shape);
   - all three passes run, each reported;
   - the line names the card (`device_name`, `power_limit`, from
-    nvidia-smi) and counts each pass's kernel launches and overflow groups.
+    nvidia-smi) and counts each pass's kernel launches and overflow groups,
+    and its lane pack (`pack_s`, summed over the extraction workers) and
+    rows copied into the groups (`copy_s`, the main thread), host clock.
 
 The x264 clips are made with tools/genvideo (a C program against the
 system's libavcodec + libx264) where missing; the five conformance streams
@@ -211,6 +213,7 @@ def device_corpus(paths, device=None, substream_bins=CORPUS_B):
         _build.load()
     fused = (lane_coder.lane_encode_streams_idx, lane_coder.lane_encode_streams)
     pass_s, launches, overflows, digests = [], [], [], []
+    pack_s, copy_s = [], []
     for i in range(PASSES):
         stats = {}
         n0 = sum(k.launches for k in fused)
@@ -223,9 +226,13 @@ def device_corpus(paths, device=None, substream_bins=CORPUS_B):
         digests.append(containers_digest(comps))
         launches.append(sum(k.launches for k in fused) - n0)
         overflows.append(lane_coder.lane_collect.overflows - o0)
+        pack_s.append(stats["pack_s"])
+        copy_s.append(stats["copy_s"])
         log(f"device corpus pass {i + 1}: {pass_s[-1]:.3f} s, "
             f"{stats['dispatches']} dispatches, {launches[-1]} fused kernel "
-            f"launches, lane_collect.overflows {overflows[-1]}")
+            f"launches, lane_collect.overflows {overflows[-1]}; lane pack "
+            f"{pack_s[-1]:.3f} s summed over the extraction workers, rows "
+            f"copied into the groups {copy_s[-1]:.3f} s on the main thread")
         if dev.type == "cuda" and launches[-1] < stats["dispatches"]:
             raise RuntimeError(
                 f"pass {i + 1}: {launches[-1]} fused lane kernel launches for "
@@ -270,6 +277,8 @@ def device_corpus(paths, device=None, substream_bins=CORPUS_B):
         "corpus_bins": stats["bins"],
         "kernel_launches": launches,
         "overflows": overflows,
+        "pack_s": [round(s, 3) for s in pack_s],
+        "copy_s": [round(s, 3) for s in copy_s],
         "stage_split_480p": split,
         "max_rss_mb": round(
             resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024, 1),

@@ -15,11 +15,14 @@
 //                           one p1 moved off the squash image so that the
 //                           second (u16) pass runs
 //   - the extraction window of parallel/pipeline.py::device_compress_corpus:
-//     up to WINDOW extractions at once (-w, default 2; the test passes the
-//     pipeline's EXTRACT_WINDOW), each on a std::thread of its own with its
-//     GOP threads, taken in order while this thread packs file k's records
-//     and closes its handle as the others still extract; the clips in
-//     turn, over at least WINDOW + 2 files so that the window refills;
+//     up to WINDOW files at once (-w, default 2; the test passes the
+//     pipeline's EXTRACT_WINDOW), each on a std::thread of its own that
+//     extracts it on its GOP threads, packs its records into buffers of its
+//     own with avtpu_lane_pack and closes its handle, while the other
+//     threads still extract; this thread takes the files in order and
+//     copies each one's rows (B = 4096) into one shared buffer after the
+//     rows before them; the clips in turn, over at least WINDOW + 2 files
+//     so that the window refills;
 //   - two avtpu_lane_pack calls at once into one set of buffers at disjoint
 //     row offsets, as ops/lane_coder.py::LaneBatcher points the packer at a
 //     dispatch group's fill row: clip 0 in the index form at row 0, clip 1
@@ -156,59 +159,6 @@ std::vector<int64_t> lane_starts(const std::vector<int64_t>& n, int B,
   return lane0;
 }
 
-// one avtpu_lane_pack call over the traces, the lanes laid out as
-// host/native.py::lane_pack lays them out.  Unless `out` is null, prints
-// the pack and appends to `out` ten int64 (clip, variant, B, Bp, L, form,
-// threads, moved trace, moved record, 0), then bitw int32 [L, Bp / 32],
-// lens int32 [L] and pk uint8 [L, 3 * Bp / 2] (form 1) or p1 uint16
-// [L, Bp] (form 0).
-void pack(FILE* out, int clip, int variant, const std::vector<const uint64_t*>& recs,
-          const std::vector<int64_t>& n, int B, int64_t moved_t,
-          int64_t moved_r) {
-  const int Bp = (B + 255) / 256 * 256;
-  int64_t L = 0;
-  std::vector<int64_t> lane0 = lane_starts(n, B, &L);
-  std::vector<uint8_t> pk((size_t)L * 3 * Bp / 2);
-  std::vector<uint16_t> p1((size_t)L * Bp);
-  std::vector<int32_t> bitw((size_t)L * Bp / 32), lens((size_t)L);
-  const int form =
-      avtpu_lane_pack(recs.data(), n.data(), lane0.data(), (int)n.size(), B,
-                      Bp, L, pk.data(), p1.data(), bitw.data(), lens.data());
-  const int threads = avtpu_lane_pack_threads(L);
-  if (form < 0) {
-    fprintf(stderr, "FAIL: lane_pack refused its shapes\n");
-    exit(1);
-  }
-  if (!out) return;
-  printf("pack clip=%d variant=%d B=%d rows=%lld threads=%d form=%d\n", clip,
-         variant, B, (long long)L, threads, form);
-  const int64_t head[10] = {clip, variant, B,       Bp,      L,
-                            form, threads, moved_t, moved_r, 0};
-  fwrite(head, sizeof head, 1, out);
-  fwrite(bitw.data(), sizeof(int32_t), bitw.size(), out);
-  fwrite(lens.data(), sizeof(int32_t), lens.size(), out);
-  if (form)
-    fwrite(pk.data(), 1, pk.size(), out);
-  else
-    fwrite(p1.data(), sizeof(uint16_t), p1.size(), out);
-}
-
-// the packs of one clip's records: as extracted at both B, then with the
-// middle record of the first non-empty trace moved off the squash image
-void pack_clip(FILE* out, int clip, const Extracted& x) {
-  pack(out, clip, 0, x.recs, x.n, kSmallB, -1, -1);
-  pack(out, clip, 0, x.recs, x.n, kLargeB, -1, -1);
-  size_t t = 0;
-  while (t < x.n.size() && !x.n[t]) t++;
-  if (t == x.n.size()) return;
-  std::vector<uint64_t> copy(x.recs[t], x.recs[t] + x.n[t]);
-  const int64_t r = x.n[t] / 2;
-  copy[r] = (copy[r] & ((1ull << 48) - 1)) | kForeignP1 << 48;
-  std::vector<const uint64_t*> recs = x.recs;
-  recs[t] = copy.data();
-  pack(out, clip, 1, recs, x.n, kSmallB, (int64_t)t, r);
-}
-
 // rows [r0, r0 + L) of the four buffers, Bp bins a row
 struct Rows {
   uint8_t* pk;
@@ -237,6 +187,69 @@ int pack_into(const std::vector<const uint64_t*>& recs,
   std::vector<int64_t> lane0 = lane_starts(n, B, &L);
   return avtpu_lane_pack(recs.data(), n.data(), lane0.data(), (int)n.size(),
                          B, Bp, L, dst.pk, dst.p1, dst.bitw, dst.lens);
+}
+
+// one avtpu_lane_pack call's header fields and rows
+struct Pack {
+  int64_t head[10];  // clip, variant, B, Bp, L, form, threads, moved
+                     // trace, moved record, 0
+  Buffers rows;
+  int64_t L() const { return head[4]; }
+  int form() const { return (int)head[5]; }
+};
+
+// one avtpu_lane_pack call over the traces into buffers of its own, the
+// lanes laid out as host/native.py::lane_pack lays them out
+Pack pack(int clip, int variant, const std::vector<const uint64_t*>& recs,
+          const std::vector<int64_t>& n, int B, int64_t moved_t,
+          int64_t moved_r) {
+  const int Bp = (B + 255) / 256 * 256;
+  int64_t L = 0;
+  lane_starts(n, B, &L);
+  Pack p{{clip, variant, B, Bp, L, 0, 0, moved_t, moved_r, 0}, Buffers(L, Bp)};
+  const int form = pack_into(recs, n, B, Bp, p.rows.rows());
+  if (form < 0) {
+    fprintf(stderr, "FAIL: lane_pack refused its shapes\n");
+    exit(1);
+  }
+  p.head[5] = form;
+  p.head[6] = avtpu_lane_pack_threads(L);
+  return p;
+}
+
+// prints the pack and appends to `out` its ten int64 header fields, then
+// bitw int32 [L, Bp / 32], lens int32 [L] and pk uint8 [L, 3 * Bp / 2]
+// (form 1) or p1 uint16 [L, Bp] (form 0)
+void write_pack(FILE* out, const Pack& p) {
+  const int64_t* h = p.head;
+  printf("pack clip=%lld variant=%lld B=%lld rows=%lld threads=%lld "
+         "form=%lld\n", (long long)h[0], (long long)h[1], (long long)h[2],
+         (long long)h[4], (long long)h[6], (long long)h[5]);
+  fwrite(h, sizeof p.head, 1, out);
+  fwrite(p.rows.bitw.data(), sizeof(int32_t), p.rows.bitw.size(), out);
+  fwrite(p.rows.lens.data(), sizeof(int32_t), p.rows.lens.size(), out);
+  if (p.form())
+    fwrite(p.rows.pk.data(), 1, p.rows.pk.size(), out);
+  else
+    fwrite(p.rows.p1.data(), sizeof(uint16_t), p.rows.p1.size(), out);
+}
+
+// the packs of one clip's records: as extracted at both B, then with the
+// middle record of the first non-empty trace moved off the squash image
+std::vector<Pack> pack_clip(int clip, const Extracted& x) {
+  std::vector<Pack> packs;
+  packs.push_back(pack(clip, 0, x.recs, x.n, kSmallB, -1, -1));
+  packs.push_back(pack(clip, 0, x.recs, x.n, kLargeB, -1, -1));
+  size_t t = 0;
+  while (t < x.n.size() && !x.n[t]) t++;
+  if (t == x.n.size()) return packs;
+  std::vector<uint64_t> copy(x.recs[t], x.recs[t] + x.n[t]);
+  const int64_t r = x.n[t] / 2;
+  copy[r] = (copy[r] & ((1ull << 48) - 1)) | kForeignP1 << 48;
+  std::vector<const uint64_t*> recs = x.recs;
+  recs[t] = copy.data();
+  packs.push_back(pack(clip, 1, recs, x.n, kSmallB, (int64_t)t, r));
+  return packs;
 }
 
 template <class T>
@@ -314,31 +327,54 @@ int main(int argc, char** argv) {
       fail("concurrent compress calls differ from serial", argv[2]);
   }
 
-  // the corpus window: files k + 1 .. k + window extract while file k
-  // packs; file k + window starts once file k's extraction has ended
+  // the corpus window: up to `window` files at once, each on a thread
+  // that extracts it, packs its records into buffers of its own and
+  // closes its handle while the threads after it still extract; this
+  // thread takes the files in order (file k + window starts once file k
+  // is taken), writes the packs of the first pass over the clips to
+  // <packs.bin> and copies each file's rows at B = kLargeB into one
+  // shared buffer after the rows before them
   FILE* out = fopen(argv[1], "wb");
   if (!out) {
     perror(argv[1]);
     return 2;
   }
   const int n_files = std::max(n_clips, window + 2);
-  std::vector<Extracted> files(n_files);
-  std::vector<std::thread> extracting(n_files);
+  std::vector<std::vector<Pack>> packed(n_files);
+  std::vector<std::thread> working(n_files);
   auto start = [&](int k) {
-    extracting[k] =
-        std::thread([&, k] { files[k] = extract(in[k % n_clips]); });
+    working[k] = std::thread([&, k] {
+      Extracted x = extract(in[k % n_clips]);
+      if (!x.handle) fail("xopen returned null", argv[2 + k % n_clips]);
+      packed[k] = pack_clip(k % n_clips, x);
+      avtpu_xclose(x.handle);
+    });
   };
+  std::vector<uint8_t> shared_pk;
+  std::vector<int32_t> shared_bitw, shared_lens;
+  int64_t rows = 0;
   for (int k = 0; k < std::min(window, n_files); k++) start(k);
   for (int k = 0; k < n_files; k++) {
-    extracting[k].join();
+    working[k].join();
     if (k + window < n_files) start(k + window);
-    if (!files[k].handle) fail("xopen returned null", argv[2 + k % n_clips]);
-    pack_clip(k < n_clips ? out : nullptr, k % n_clips, files[k]);
-    avtpu_xclose(files[k].handle);
-    files[k] = Extracted();
+    std::vector<Pack> packs = std::move(packed[k]);
+    if (k < n_clips)
+      for (const Pack& p : packs) write_pack(out, p);
+    const Pack& p = packs[1];  // B = kLargeB, as extracted
+    if (!p.form()) fail("a pack at B = 4096 left the index form", argv[2]);
+    const Buffers& b = p.rows;
+    shared_pk.insert(shared_pk.end(), b.pk.begin(), b.pk.end());
+    shared_bitw.insert(shared_bitw.end(), b.bitw.begin(), b.bitw.end());
+    shared_lens.insert(shared_lens.end(), b.lens.begin(), b.lens.end());
+    rows += p.L();
   }
   fclose(out);
-  printf("corpus window=%d files=%d\n", window, n_files);
+  const int Bp = (kLargeB + 255) / 256 * 256;
+  if (shared_pk.size() != (size_t)rows * 3 * Bp / 2 ||
+      shared_lens.size() != (size_t)rows)
+    fail("the shared buffer's rows differ from the packs'", argv[2]);
+  printf("corpus window=%d files=%d rows=%lld\n", window, n_files,
+         (long long)rows);
 
   Extracted x0 = extract(in[0]), x1 = extract(in[1]);
   if (!x0.handle || !x1.handle) fail("xopen returned null", argv[2]);

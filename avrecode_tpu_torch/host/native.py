@@ -20,13 +20,15 @@ import os
 import platform
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _HOST = Path(__file__).resolve().parent
 BUILD_DIR = _HOST.parent.parent / "build" / "torch_host"
 
 _LIB = None
-_TRIED = False
+_TRIED = False  # set once _LIB holds the library, or the build gave None
+_LOAD_LOCK = threading.Lock()  # one build and load however many threads ask
 
 
 def _cpu_flags():
@@ -155,14 +157,23 @@ def sanitizer_missing(kind):
 
 
 def _load():
+    """The loaded library, or None where it cannot be built.  Concurrent
+    first calls (the corpus driver's extraction workers) wait for one build
+    and load and all see its library."""
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    path = build()  # a failed build raises, and again at the next call
-    _TRIED = True
-    if path is None:
-        return None
-    lib = ctypes.CDLL(str(path))
+    with _LOAD_LOCK:
+        if not _TRIED:
+            path = build()  # a failed build raises, and again at the next call
+            if path is not None:
+                _LIB = _bind(ctypes.CDLL(str(path)))
+            _TRIED = True
+    return _LIB
+
+
+def _bind(lib):
+    """lib with every entry point's argument and result types set."""
     lib.avtpu_compress_mt.restype = ctypes.c_size_t
     lib.avtpu_compress_mt.argtypes = [
         ctypes.c_char_p,
@@ -224,8 +235,7 @@ def _load():
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64]
         + [ctypes.c_void_p] * 4)
     lib.avtpu_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
-    _LIB = lib
-    return _LIB
+    return lib
 
 
 def available():

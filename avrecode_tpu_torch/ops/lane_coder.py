@@ -27,7 +27,8 @@ _lane_kernel + _finalize_device) goes from the lane problem straight to
 every lane's stream bytes; lane_encode_streams_plain = finalize_device of
 lane_encode_plain is its plain version.  Around it, LaneBatcher packs
 each file's lanes straight into a dispatch group's reused pinned staging
-buffer (the native packer writes at the group's fill row), dispatch_group
+buffer (the native packer writes at the group's fill row), or copies in
+rows packed elsewhere (the corpus driver's workers), dispatch_group
 uploads the group from there and launches without a host sync, and
 collect_groups reads back the lengths first and then only the columns that
 hold stream bytes, one bytes object a group, from which GroupStreams cuts
@@ -53,6 +54,7 @@ the unsigned compare the JAX version builds from a sign flip.
 import bisect
 import functools
 import threading
+import time
 
 import numpy as np
 import torch
@@ -719,6 +721,9 @@ def max_bytes(Bp, bits_per_byte=4):
 
 
 GROUP_RING = 2  # group staging buffers a (form, width) of a process
+# arrays under this size are copied into a group with the GIL held
+# (_Group.put): ~0.1 ms of copying, what taking the GIL back can cost
+HOLD_GIL_BYTES = 1 << 20
 
 
 class _Group:
@@ -741,10 +746,22 @@ class _Group:
         self.busy = True
 
     def put(self, r0, p1, bitw, lens):
-        """Copy numpy rows (p1 in this group's form) in at row r0."""
-        n = p1.shape[0]
-        for dst, src in zip((self.p1, self.bitw, self.lens), (p1, bitw, lens)):
-            dst[r0:r0 + n].copy_(torch.from_numpy(np.ascontiguousarray(src)))
+        """Copy numpy rows (p1 in this group's form) in at row r0, an array
+        at a time: one under HOLD_GIL_BYTES through memoryviews with the
+        GIL held, a larger one by numpy, which lets the GIL go while it
+        copies.  (Beside busy threads, taking the GIL back costs more than
+        a small copy: a phase-15 corpus pass's ~6,000 small arrays took
+        ~0.6 s letting it go against ~0.1 held; held through every copy,
+        a pass of long clips, hundreds of MB a file, ran 5-20% slower.  A
+        torch copy_ spreads over the intra-op thread pool: ~13 s a
+        phase-15 pass.)"""
+        for dst, src in zip(self.np, (p1, bitw, lens)):
+            rows = dst[r0:r0 + src.shape[0]]
+            if src.nbytes < HOLD_GIL_BYTES:
+                memoryview(rows).cast("B")[:] = memoryview(
+                    np.ascontiguousarray(src, dst.dtype)).cast("B")
+            else:
+                rows[...] = src
 
 
 class _GroupRing:
@@ -979,12 +996,14 @@ class LaneBatcher:
     file's lanes occupy one contiguous global range.
 
     Rows go straight into the group's staging buffer (_GroupRing.take):
-    native traces are packed there by native.lane_pack_into at the group's
-    fill row, other rows copied in (add).  A group holds rows of one upload
-    form only: a file whose rows come in the other form than the rows
-    waiting (the packer gives a file the u16 form where its p1 leave the
-    squash image) first dispatches those as a group of their own.  A file
-    that crosses a group boundary is packed apart and copied in pieces."""
+    add_traces packs native traces there by native.lane_pack_into at the
+    group's fill row; add copies in rows packed elsewhere (the corpus
+    driver packs each file on its extraction worker).  A group holds rows
+    of one upload form only: a file whose rows come in the other form than
+    the rows waiting (the packer gives a file the u16 form where its p1
+    leave the squash image) first dispatches those as a group of their
+    own.  A file that crosses a group boundary is packed apart and copied
+    in pieces."""
 
     def __init__(self, device, big=None):
         self.dev = resolve_device(device)
@@ -995,6 +1014,7 @@ class LaneBatcher:
         self.pending = []  # dispatched group handles, global row order
         self.dispatches = 0  # groups dispatched
         self.rows = 0  # total rows appended
+        self.copy_s = 0.0  # host clock spent copying rows in (add)
 
     def _current(self, index, Bp):
         """The group being filled, in the given form and width: a group
@@ -1025,8 +1045,10 @@ class LaneBatcher:
         while done < n:
             g = self._current(index, Bp)
             k = min(n - done, self.big - self.acc)
+            t0 = time.perf_counter()
             g.put(self.acc, p1[done:done + k], bitw[done:done + k],
                   lens[done:done + k])
+            self.copy_s += time.perf_counter() - t0
             self.acc += k
             done += k
             if self.acc == self.big:

@@ -39,6 +39,7 @@ returns bytes identical to codec.decompress(blob).
 import collections
 import concurrent.futures
 import os
+import time
 
 import numpy as np
 import torch
@@ -65,6 +66,7 @@ from ..ops.lane_coder import (
     encode_traces_lanes,
     lane_collect,
     lane_dispatch_compact,
+    pack_lanes,
 )
 from ..utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
 from .mesh import check_mesh, make_mesh, on_shard, shard_ranges, shard_streams
@@ -243,12 +245,30 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
                       substream_bins)
 
 
-# Extractions of device_compress_corpus in flight at once, on a thread pool
-# (the native extractor releases the GIL): one a core, and at least two so
-# that a file extracts while the one before it packs.  Each keeps the
-# extractor's own GOP threads, which spread a large file over the cores
-# where the window is not full (chip_stages.py window measures both).
-EXTRACT_WINDOW = max(2, os.cpu_count() or 1)
+def _cores():
+    """The cores this process may run on: its affinity mask where the
+    platform has one, else the machine's count."""
+    if hasattr(os, "sched_getaffinity"):
+        return len(os.sched_getaffinity(0))
+    return os.cpu_count() or 1
+
+
+# Files of device_compress_corpus in flight at once, each extracted and
+# packed on a thread pool (the native extractor and packer release the
+# GIL): one a core the process may run on, and at least two.  Each keeps
+# the extractor's own GOP threads, which spread a large file over the
+# cores where the window is not full (chip_stages.py window measures both).
+EXTRACT_WINDOW = max(2, _cores())
+# The input bytes of the files submitted and not yet taken by the main
+# thread, at most (a file is admitted alone whatever its size).  A file's
+# bins are not known before it is extracted, its bytes are: ~8-16 bins a
+# byte, each an 8-byte record while the file extracts, so the files in
+# flight hold ~70-130 times this in records.  On a directory of long HD
+# clips (20-33 MB each) 64 MiB keeps two or three extracting, as fast as
+# no bound and with a third less peak RSS; a budget under two such files
+# runs them one at a time, ~22% slower.  It holds back none of many small
+# files (chip_stages.py bigcorpus, window; an H100 machine's 8 cores).
+EXTRACT_BYTES = 64 << 20
 
 
 def _read(x):
@@ -269,16 +289,26 @@ def _drop_traces(blocks, traces):
     return blocks, list(stub.values())
 
 
-def _pack_file(batcher, extracted, substream_bins):
-    """Append one extracted file's lanes to the batcher.  Returns (bins,
-    its global rows, what serialisation needs: (sps, pps, blocks,
-    placeholders, spans)); rows None for a file without traces."""
-    sps, pps, blocks, traces, _ = extracted
+def _extract_and_pack(data, scope, substream_bins):
+    """One file of device_compress_corpus, on its extraction worker:
+    extract, pack the lanes into arrays of the file's own (pack_lanes:
+    native traces through the native packer, the GIL released) and let the
+    traces go here, so that a native extraction's buffer closes on this
+    thread as soon as the pack ends.  Returns (data, None) for a file
+    without traces, which the main thread compresses on the host; else
+    (None, (bins, (p1, bitw, lens), (sps, pps, blocks, placeholders,
+    spans), seconds spent packing))."""
+    sps, pps, blocks, traces, _ = extract_traces(data, scope=scope,
+                                                 want_slots=False)
     if not traces:
-        return 0, None, None
-    rows, spans = batcher.add_traces(traces, substream_bins)
+        return data, None
+    t0 = time.perf_counter()
+    p1, bitw, lens, spans = pack_lanes(traces, substream_bins)
+    pack_s = time.perf_counter() - t0
+    bins = sum(len(t) for t in traces)
     blocks, stubs = _drop_traces(blocks, traces)
-    return sum(len(t) for t in traces), rows, (sps, pps, blocks, stubs, spans)
+    return None, (bins, (p1, bitw, lens), (sps, pps, blocks, stubs, spans),
+                  pack_s)
 
 
 def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
@@ -286,13 +316,16 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
     """Batch-directory device compression: compress many files through ONE
     streaming device pipeline instead of per-file device_compress calls.
 
-    Up to EXTRACT_WINDOW files extract at once on a thread pool, submitted
-    and taken in one order (largest first), so the batcher's append order,
-    and with it the dispatch groups, do not depend on the window.  Each
-    file's lanes are packed straight into the cross-file batcher's
-    dispatch group (ops/lane_coder.StreamingBatcher); full groups launch as
-    they fill, and each group is read back before the next launches.  A
-    file's traces are let go once packed; its container is serialised as
+    Files are extracted and packed on a thread pool, each on its worker
+    (_extract_and_pack: the file's lanes in arrays of its own, its traces
+    let go there), up to EXTRACT_WINDOW files and EXTRACT_BYTES input
+    bytes in flight, submitted and taken in one order (largest first), so
+    the batcher's append order, and with it the dispatch groups, do not
+    depend on the window.  The main thread copies each file's rows into
+    the cross-file batcher's dispatch group (ops/lane_coder.StreamingBatcher
+    .add, which splits a file across groups and keeps a group to one
+    upload form); full groups launch as they fill, and each group is read
+    back before the next launches.  A file's container is serialised as
     soon as the rows of its lanes are back, each envelope cut by offset
     from its group's bytes, and a group's bytes are let go once every file
     in it is serialised.  Output containers are byte-identical to
@@ -300,7 +333,9 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
 
     inputs: list of paths or bytes.  Returns list of container bytes, in
     input order.  stats (optional dict) receives {'dispatches': N,
-    'bins': M}.  substream_bins=0 raises ValueError: the corpus path is
+    'bins': M, 'pack_s': the workers' packing, summed over them, 'copy_s':
+    the main thread's copying of rows into the groups} (seconds, host
+    clock).  substream_bins=0 raises ValueError: the corpus path is
     lane-only, as in the JAX package.  An exception in a file's extraction
     or pack propagates as raised, after the extractions not yet started
     are cancelled and the group being filled is given back."""
@@ -316,16 +351,16 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
              for x in inputs]
     # biggest files first: their uploads start while the remaining files
     # extract on the host CPU
-    order = sorted(range(len(inputs)), key=lambda i: -sizes[i])
+    todo = collections.deque(sorted(range(len(inputs)),
+                                    key=lambda i: -sizes[i]))
 
     def extract(i):
-        data = _read(inputs[i])
-        return data, extract_traces(data, scope=scope, want_slots=False)
+        return _extract_and_pack(_read(inputs[i]), scope, substream_bins)
 
     outs = [None] * len(inputs)
-    waiting = collections.deque()  # packed files: (index, rows, meta)
+    waiting = collections.deque()  # copied files: (index, rows, meta)
     batcher = StreamingBatcher(dev)
-    n_bins = 0
+    n_bins, pack_s = 0, 0.0
 
     def serialise_ready():
         got = batcher.streams
@@ -336,47 +371,55 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
                                    substream_bins)
         got.trim(waiting[0][1][0] if waiting else got.end)
 
-    todo = iter(order)
     ahead = collections.deque()  # (input index, future), in order
+    held = 0  # input bytes submitted and not yet taken
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=EXTRACT_WINDOW)
 
     def submit():
-        i = next(todo, None)
-        if i is not None:
+        nonlocal held
+        while todo and len(ahead) < EXTRACT_WINDOW and (
+                not held or held + sizes[todo[0]] <= EXTRACT_BYTES):
+            i = todo.popleft()
+            held += sizes[i]
             ahead.append((i, pool.submit(extract, i)))
 
     try:
-        for _ in range(EXTRACT_WINDOW):
-            submit()
+        submit()
         while ahead:
             idx, fut = ahead.popleft()
             submit()
             try:
-                data, extracted = fut.result()
+                data, packed = fut.result()
             finally:
-                # the future holds the traces, or the exception, whose
+                # the future holds the packed rows, or the exception, whose
                 # traceback holds this frame
                 del fut
-            bins, rows, meta = _pack_file(batcher, extracted, substream_bins)
-            del extracted
-            n_bins += bins
-            if rows is None:
+            held -= sizes[idx]
+            submit()
+            if packed is None:
                 outs[idx] = compress(data, scope=scope,
                                      substream_bins=substream_bins)
             else:
-                waiting.append((idx, rows, meta))
+                bins, rows, meta, secs = packed
+                del packed
+                n_bins += bins
+                pack_s += secs
+                waiting.append((idx, batcher.add(*rows), meta))
+                del rows
             serialise_ready()
         batcher.finish()
         serialise_ready()
     except BaseException:
         batcher.close()
-        ahead.clear()  # the extracted files' traces
+        ahead.clear()  # the packed files' rows
         raise
     finally:
         pool.shutdown(cancel_futures=True)
     if stats is not None:
         stats["dispatches"] = batcher.dispatches
         stats["bins"] = n_bins
+        stats["pack_s"] = pack_s
+        stats["copy_s"] = batcher.copy_s
     return outs
 
 

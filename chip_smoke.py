@@ -118,8 +118,10 @@ Phases; any failure raises and the script exits non-zero:
              corpus passes two full dispatch groups at the bench's B:
              every container roundtrips, the CUDA lane kernel coded it,
              three or more dispatches, the fused kernel launched once a
-             dispatch in every pass, the card named; prints the bench's
-             line (its per-file entries counted, not listed)
+             dispatch in every pass, the card named; prints each pass's
+             lane pack summed over the extraction workers and its rows'
+             copy on the main thread, then the bench's line (its per-file
+             entries counted, not listed)
   16 verify  python3 tools/gpu_verify.py --out <a temporary file>: exit
              code 0 and every check ok (each compress check through either
              fused launcher, the off-image lanes through lane_encode_streams
@@ -1943,10 +1945,15 @@ def phase_bench():
         f"{ {f['file']: f['ratio_pct'] for f in files[:len(paths)]} }")
     log("bench stderr: " + " | ".join(
         l for l in res.stderr.splitlines() if l.startswith("device corpus")))
+    log(f"bench: each pass's lane pack, summed over the extraction workers, "
+        f"{line['pack_s']} s; its rows copied into the groups on the main "
+        f"thread {line['copy_s']} s; the pass {line['pass_s']} s")
     line["files"] = len(files)
     print(json.dumps(line), flush=True)
     if (line["roundtrip_failures"] != 0 or len(files) != len(corpus)
             or line["kernel"] != "cuda-lane" or line["dispatches"] < 3
+            or len(line["pack_s"]) != len(line["pass_s"])
+            or len(line["copy_s"]) != len(line["pass_s"])
             or min(line["kernel_launches"]) < line["dispatches"]
             or not line["device_name"] or not line["power_limit"]):
         raise AssertionError(f"bench: the line fails its checks: {line}")

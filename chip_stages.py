@@ -33,15 +33,38 @@ The parts, all of them by default, in this order:
              13 pinned files x ~158 copies) at B = 16384 and 4096, three
              passes each, each pass's host time by stage (CORPUS_SPLIT, the
              stages the tree has): the main thread's wait on the
-             extractions, packing into staging, upload, launch, read-back,
-             the rest of collect, envelopes, serialisation, the rest of the
-             wall; the extraction summed over the worker threads beside
-             them; the pass's peak RSS (VmRSS sampled on a thread) and its
-             peak device memory (torch.cuda.max_memory_allocated above what
-             was allocated before it)
+             extractions, packing into staging (add_traces, trees before
+             the pack moved to the workers) or copying the packed rows in
+             (add), upload, launch, read-back, the rest of collect,
+             envelopes, serialisation, the rest of the wall; the
+             extraction and the lane pack summed over the worker threads
+             beside them; the main thread's CPU time in the pack or copy
+             and in serialisation, and the process's CPU time over the
+             pass (all threads) and the cores it kept busy; the pass's
+             peak RSS (VmRSS sampled on a thread) and its peak device
+             memory (torch.cuda.max_memory_allocated above what was
+             allocated before it)
   window     the same corpus at B = 16384, at each extraction window of
-             WINDOWS and each extraction's GOP threads of GOP_THREADS, two
-             passes each, split as above
+             WINDOWS and each extraction's GOP threads of GOP_THREADS, then
+             at each EXTRACT_BYTES of BYTES_SWEEP (trees that have it) at
+             the tree's window, two passes each, split as above
+  benchcorpus  the bench's own corpus (bench.CORPUS and CONFORMANCE under
+             data/; raises naming any missing) at the bench's B, three
+             passes split as above, in a fresh process for the tree's
+             EXTRACT_BYTES and one for each of BENCH_BYTES (trees that
+             have it): each pass's wall, peak RSS and the RSS before it,
+             and the process's ru_maxrss (the bench's max_rss_mb)
+  bigcorpus  the same for BIG_CORPUS, five long HD clips of 20-33 MB, each
+             above the tree's EXTRACT_BYTES (make_big_corpus makes them
+             where libx264 is; raises naming any missing), at each of
+             BIG_BYTES, BIG_RUNS passes a process
+  copy       the main thread's copy of phase 15's packed rows into a
+             pinned group (LaneBatcher.add), by each way of COPY_WAYS, a
+             file a call and one call for all, on an idle host and beside
+             EXTRACT_WINDOW extracting threads: wall and thread CPU
+  route      one file into a dispatch group both ways, add_traces (packed
+             in place) and pack_lanes then add (copied in), the stage
+             alone and device_compress whole, on ROUTE_FILES at ROUTE_BS
   transfer   the ways to bring the group's p1 (268 MB) to the card, and the
              parts of the read-back
   decode     device_decompress(blob) on containers of rt_ctr.mkv and
@@ -51,6 +74,8 @@ The parts, all of them by default, in this order:
 
 import concurrent.futures
 import os
+import resource
+import subprocess
 import sys
 import threading
 import time
@@ -75,6 +100,25 @@ CORPUS_BS = (16384, 4096)  # the corpus split's B: the bench's, and ~8 groups
 WINDOWS = (1, 2, 4, 8, 16)  # extraction windows of the `window` part
 GOP_THREADS = (0, 1)  # an extraction's GOP threads in the `window` part
 WINDOW_RUNS = 2
+# EXTRACT_BYTES of the `window` part (phase 15's files are 270 B to 33 KB)
+BYTES_SWEEP = (64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
+# EXTRACT_BYTES of the `benchcorpus` part, each in a process of its own (its
+# files are 1.5 KB to 5.7 MB); 1 << 40 bounds nothing
+BENCH_BYTES = (2 << 20, 4 << 20, 8 << 20, 16 << 20, 1 << 40)
+# A directory of long HD clips, each larger than EXTRACT_BYTES: bench.CORPUS
+# entries (tools/genvideo arguments), made under data/ by make_big_corpus()
+# on a host with libx264 (the card's machine has none) and carried untracked
+BIG_CORPUS = [
+    ("big_1080p_gop60.mp4", 1920, 1080, 2400, 30, 60, 2, 18, 1101, 1),
+    ("big_1080p_gop250.mp4", 1920, 1080, 1800, 30, 250, 3, 18, 1102, 1),
+    ("big_1080p_crf20.mp4", 1920, 1080, 3000, 30, 60, 2, 20, 1103, 1),
+    ("big_720p.mp4", 1280, 720, 3600, 30, 60, 2, 18, 1104, 1),
+    ("big_4k.mp4", 3840, 2160, 600, 30, 60, 2, 20, 1105, 4),
+]
+BIG_ENV = {"AVT_NOISE": "4"}  # genvideo's content knob, every big clip
+# EXTRACT_BYTES of the `bigcorpus` part, each in a process of its own
+BIG_BYTES = (8 << 20, 32 << 20, 64 << 20, 128 << 20, 1 << 40)
+BIG_RUNS = 2
 
 
 class Stages:
@@ -319,9 +363,16 @@ def phase15_corpus():
     return datas, BENCH_GROUPS * tlc.GROUP_ROWS // rows + 1
 
 
+# stages that run on the extraction workers, summed over them
+WORKER_STAGES = ("extraction (worker threads)", "lane pack (worker threads)")
+# main-thread stages whose thread CPU time is printed beside their time
+MAIN_CPU = ("pack into staging (add_traces)", "copy into staging (add)",
+            "serialisation")
 # (owner, attribute, stage) of a corpus pass's stages
 CORPUS_SPLIT = (
+    (pipeline, "pack_lanes", WORKER_STAGES[1]),
     (tlc.LaneBatcher, "add_traces", "pack into staging (add_traces)"),
+    (tlc.LaneBatcher, "add", "copy into staging (add)"),
     (tlc, "upload_group", "upload (copy_)"),
     (tlc, "dispatch_group", "launch"),
     (tlc, "read_group", "read-back"),
@@ -334,27 +385,34 @@ CORPUS_SPLIT = (
 class Split:
     """Host time by stage: each wrapped call's time less the time of the
     wrapped calls inside it (a stack a thread); a stage that runs on
-    several threads at once is summed over them."""
+    several threads at once is summed over them.  `cpu` holds the same
+    for the calling thread's CPU time (time.thread_time: not the threads a
+    native call starts, nor the time the thread waits for a core or the
+    GIL)."""
 
     def __init__(self):
         self.spent = {}
+        self.cpu = {}
         self.local = threading.local()
         self.lock = threading.Lock()
 
     def wrap(self, fn, name):
         def run(*args, **kwargs):
             stack = self.local.__dict__.setdefault("stack", [])
-            stack.append(0.0)
-            t0 = time.perf_counter()
+            stack.append([0.0, 0.0])
+            t0, c0 = time.perf_counter(), time.thread_time()
             try:
                 return fn(*args, **kwargs)
             finally:
                 dt = time.perf_counter() - t0
-                inner = stack.pop()
+                dc = time.thread_time() - c0
+                inner, inner_cpu = stack.pop()
                 with self.lock:
                     self.spent[name] = self.spent.get(name, 0.0) + dt - inner
+                    self.cpu[name] = self.cpu.get(name, 0.0) + dc - inner_cpu
                 if stack:
-                    stack[-1] += dt
+                    stack[-1][0] += dt
+                    stack[-1][1] += dc
         return run
 
 
@@ -371,28 +429,30 @@ class TimedFuture:
         return self.fut.cancel()
 
 
-def split_pass(corpus, B, dev, window=None, threads=None):
+def split_pass(corpus, B, dev, window=None, threads=None, budget=None):
     """One device_compress_corpus pass with every stage of CORPUS_SPLIT
-    that the tree has wrapped in a Split, the extraction on the worker
-    threads (summed over them) and the main thread's wait for it too:
-    (containers, stats, {stage: s}) with the wall time, the rest (the wall
-    less the main thread's stages), the pass's peak RSS and its device
-    peak (bytes above what was allocated before it).  window sets
-    pipeline.EXTRACT_WINDOW, threads each extraction's GOP threads (0 =
-    the extractor's own count), for the pass."""
+    that the tree has wrapped in a Split, the extraction and the lane pack
+    on the worker threads (each summed over them) and the main thread's
+    wait for them too: (containers, stats, {stage: s}) with the wall time,
+    the rest (the wall less the main thread's stages), the pass's peak RSS
+    and its device peak (bytes above what was allocated before it).
+    window sets pipeline.EXTRACT_WINDOW, budget pipeline.EXTRACT_BYTES
+    (trees that have it), threads each extraction's GOP threads (0 = the
+    extractor's own count), for the pass."""
     split = Split()
     extract = pipeline.extract_traces
     if threads is not None:
         def extract(data, real=extract, **kw):
             return real(data, **dict(kw, threads=threads))
-    saved = [(pipeline, "extract_traces", extract,
-              "extraction (worker threads)")]
+    saved = [(pipeline, "extract_traces", extract, WORKER_STAGES[0])]
     saved += [(owner, attr, getattr(owner, attr), name)
               for owner, attr, name in CORPUS_SPLIT if hasattr(owner, attr)]
     originals = [(pipeline, "extract_traces", pipeline.extract_traces)] + [
         (owner, attr, fn) for owner, attr, fn, _ in saved[1:]]
     if window is not None:
         originals.append((pipeline, "EXTRACT_WINDOW", pipeline.EXTRACT_WINDOW))
+    if budget is not None:
+        originals.append((pipeline, "EXTRACT_BYTES", pipeline.EXTRACT_BYTES))
     pool = concurrent.futures.ThreadPoolExecutor
 
     class TimedPool(pool):
@@ -405,27 +465,34 @@ def split_pass(corpus, B, dev, window=None, threads=None):
             setattr(owner, attr, split.wrap(fn, name))
         if window is not None:
             pipeline.EXTRACT_WINDOW = window
+        if budget is not None:
+            pipeline.EXTRACT_BYTES = budget
         concurrent.futures.ThreadPoolExecutor = TimedPool
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         allocated = torch.cuda.memory_allocated(dev)
         with PeakRSS() as rss:
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.process_time()
             outs = pipeline.device_compress_corpus(
                 corpus, scope="gop", substream_bins=B, device=dev,
                 stats=stats)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            host_cpu = time.process_time() - c0
         device_peak = torch.cuda.max_memory_allocated(dev) - allocated
     finally:
         concurrent.futures.ThreadPoolExecutor = pool
         for owner, attr, fn in originals:
             setattr(owner, attr, fn)
     spent = dict(split.spent)
-    worker = spent.pop("extraction (worker threads)", 0.0)
+    worker = {name: spent.pop(name, 0.0) for name in WORKER_STAGES}
     spent["the rest"] = wall - sum(spent.values())
     spent["wall"] = wall
-    spent["extraction (worker threads)"] = worker
+    spent.update(worker)
+    spent.update({f"{name}, thread CPU": s for name, s in split.cpu.items()
+                  if name in MAIN_CPU})
+    spent["host CPU, all threads"] = host_cpu
+    spent["cores busy"] = host_cpu / wall
     spent["peak RSS GB"] = rss.peak / 1e9
     spent["RSS before GB"] = rss.before / 1e9
     spent["device peak GB"] = device_peak / 1e9
@@ -468,22 +535,284 @@ def corpus_split(dev):
             f"s a pass, median of {RUNS} (each pass): {median_line(passes)}")
 
 
+def tree_budget():
+    """The tree's EXTRACT_BYTES, as text ("none" before the window had a
+    byte bound)."""
+    return str(getattr(pipeline, "EXTRACT_BYTES", "none"))
+
+
 def corpus_window(dev):
     """device_compress_corpus on phase 15's corpus at the bench's B, at
     each extraction window of WINDOWS and each extraction's GOP threads of
-    GOP_THREADS (0: the extractor's own count, up to 16), WINDOW_RUNS
-    passes each (split_pass)."""
+    GOP_THREADS (0: the extractor's own count, up to 16), then at each
+    EXTRACT_BYTES of BYTES_SWEEP at the tree's window and GOP threads (in
+    trees that have it), WINDOW_RUNS passes each (split_pass)."""
     datas, copies = phase15_corpus()
     corpus = datas * copies
-    for threads in GOP_THREADS:
-        for window in WINDOWS:
-            stats, passes = corpus_passes(corpus, bench.CORPUS_B, dev,
-                                          WINDOW_RUNS, window=window,
-                                          threads=threads)
-            log(f"corpus window={window} threads={threads} "
-                f"B={bench.CORPUS_B} ({os.cpu_count()} cores): "
-                f"{stats['dispatches']} dispatches; s a pass, median of "
-                f"{WINDOW_RUNS} (each pass): {median_line(passes)}")
+    sizes = sorted(map(len, datas))
+    log(f"corpus window: {len(corpus)} files of {sizes[0]}-{sizes[-1]} "
+        f"bytes; the tree's window {pipeline.EXTRACT_WINDOW}, EXTRACT_BYTES "
+        f"{tree_budget()}")
+    runs = [(window, threads, None) for threads in GOP_THREADS
+            for window in WINDOWS]
+    if hasattr(pipeline, "EXTRACT_BYTES"):
+        runs += [(None, None, budget) for budget in BYTES_SWEEP]
+    for window, threads, budget in runs:
+        stats, passes = corpus_passes(corpus, bench.CORPUS_B, dev,
+                                      WINDOW_RUNS, window=window,
+                                      threads=threads, budget=budget)
+        log(f"corpus window={window or pipeline.EXTRACT_WINDOW} "
+            f"threads={threads or 0} bytes={budget or tree_budget()} "
+            f"B={bench.CORPUS_B} ({os.cpu_count()} cores): "
+            f"{stats['dispatches']} dispatches; s a pass, median of "
+            f"{WINDOW_RUNS} (each pass): {median_line(passes)}")
+
+
+def corpus_paths(names, what):
+    """data/<name> for each name; raises naming every one that is missing
+    (tools/genvideo makes the x264 clips, and cannot run on the card's
+    machine)."""
+    missing = [n for n in names
+               if not os.path.exists(os.path.join(ROOT, "data", n))]
+    if missing:
+        raise RuntimeError(f"{what}: {len(missing)} files missing "
+                           f"from data/: {', '.join(missing)}")
+    return [os.path.join(ROOT, "data", n) for n in names]
+
+
+def bench_paths():
+    """The bench's own corpus files (bench.CORPUS, then CONFORMANCE)."""
+    return corpus_paths([name for name, *_ in bench.CORPUS + bench.CONFORMANCE],
+                        "bench corpus")
+
+
+def big_paths():
+    """The clips of BIG_CORPUS (make_big_corpus makes them)."""
+    return corpus_paths([name for name, *_ in BIG_CORPUS], "big corpus")
+
+
+CORPORA = {"bench": (bench_paths, RUNS), "big": (big_paths, BIG_RUNS)}
+
+
+def corpus_child(which, budget):
+    """In a fresh process: warm up, then the corpus's split passes
+    (CORPORA: its paths and passes) at the bench's B with EXTRACT_BYTES =
+    budget (None: the tree's), each pass's line and then the process's
+    ru_maxrss."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    find, runs = CORPORA[which]
+    paths = find()
+    warm_up(dev)
+    passes = []
+    for i in range(runs):
+        outs, stats, spent = split_pass(paths, bench.CORPUS_B, dev,
+                                        budget=budget)
+        del outs
+        passes.append(spent)
+        log(f"{which} corpus pass {i + 1} bytes={budget or tree_budget()}: "
+            f"wall {spent['wall']:.4f} s, peak RSS {spent['peak RSS GB']:.3f}"
+            f" GB ({spent['RSS before GB']:.3f} GB before), cores busy "
+            f"{spent['cores busy']:.2f}, {stats['dispatches']} dispatches, "
+            f"{stats['bins']} bins")
+    sizes = sorted(map(os.path.getsize, paths))
+    log(f"{which} corpus bytes={budget or tree_budget()}: {len(paths)} files "
+        f"of {sizes[0]}-{sizes[-1]} bytes, {sum(sizes)} in all, window "
+        f"{pipeline.EXTRACT_WINDOW}; s a pass, median of {runs} (each pass):"
+        f" {median_line(passes)}; ru_maxrss "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.1f} MB")
+
+
+def corpus_children(which, budgets):
+    """corpus_child in a process of its own for the tree's EXTRACT_BYTES,
+    then for each of `budgets` (trees that have it): a process's peak RSS
+    is what the bench reads, and glibc keeps what a pass frees, so budgets
+    are not compared within one process."""
+    CORPORA[which][0]()
+    todo = [None]
+    if hasattr(pipeline, "EXTRACT_BYTES"):
+        todo += [b for b in budgets if b != pipeline.EXTRACT_BYTES]
+    for budget in todo:
+        res = subprocess.run(
+            [sys.executable, "-c", "import chip_stages; "
+             f"chip_stages.corpus_child({which!r}, {budget})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=900)
+        for line in res.stdout.splitlines():
+            if line.startswith(f"{which} corpus"):
+                log(line)
+        if res.returncode != 0:
+            raise RuntimeError(f"{which} corpus bytes={budget}: exit code "
+                               f"{res.returncode}\n{res.stderr[-3000:]}")
+
+
+def bench_corpus(dev):
+    corpus_children("bench", BENCH_BYTES)
+
+
+def big_corpus(dev):
+    corpus_children("big", BIG_BYTES)
+
+
+def _numpy_put(group, r0, p1, bitw, lens):
+    """_Group.put through numpy's assignment: the GIL released for each
+    array's copy."""
+    for dst, src in zip(group.np, (p1, bitw, lens)):
+        dst[r0:r0 + src.shape[0]] = src
+
+
+def _memmove_put(group, r0, p1, bitw, lens):
+    """_Group.put through ctypes.memmove: one memcpy an array, the GIL
+    released for each."""
+    import ctypes
+    for dst, src in zip(group.np, (p1, bitw, lens)):
+        src = np.ascontiguousarray(src)
+        ctypes.memmove(dst[r0:].ctypes.data, src.ctypes.data, src.nbytes)
+
+
+COPY_WAYS = {"_Group.put (the GIL held under HOLD_GIL_BYTES)": tlc._Group.put,
+             "numpy, the GIL released": _numpy_put,
+             "ctypes.memmove, the GIL released": _memmove_put}
+
+
+class _Load:
+    """EXTRACT_WINDOW threads extracting the given files over and over (the
+    native extractor, the GIL released, its GOP threads), as the corpus
+    pass's workers load the host while the main thread copies."""
+
+    def __init__(self, datas):
+        self.datas, self.stop = datas, threading.Event()
+        self.threads = [threading.Thread(target=self._run, args=(k,),
+                                         daemon=True)
+                        for k in range(pipeline.EXTRACT_WINDOW)]
+
+    def _run(self, k):
+        while not self.stop.is_set():
+            pipeline.extract_traces(self.datas[k % len(self.datas)],
+                                    scope="gop", want_slots=False)
+            k += 1
+
+    def __enter__(self):
+        for t in self.threads:
+            t.start()
+        time.sleep(1.0)
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        for t in self.threads:
+            t.join()
+
+
+def copy_split(dev):
+    """What the main thread's copy of a phase-15 pass's packed rows costs
+    (LaneBatcher.add's _Group.put): every file's rows packed by pack_lanes
+    into arrays of its own, as the workers hand them over, then copied one
+    file at a time into pinned group buffers, by each way of COPY_WAYS, on
+    an idle host and beside EXTRACT_WINDOW extracting threads (_Load):
+    the wall, the thread's CPU, and both again for the same bytes copied as
+    one array a group (the per-file calls apart); every way's rows equal."""
+    datas, copies = phase15_corpus()
+    B = bench.CORPUS_B
+    packed = [tlc.pack_lanes(pipeline.extract_traces(
+        d, scope="gop", want_slots=False)[3], B)[:3] for d in datas]
+    files = [tuple(a.copy() for a in packed[i % len(datas)])
+             for i in range(len(datas) * copies)]
+    index = {tlc.index_form(f[0]) for f in files}
+    if index != {True}:
+        raise RuntimeError("copy split: phase 15's rows are not all in the "
+                           "index form")
+    Bp = tlc.lane_bins(files[0][0])
+    rows = sum(f[0].shape[0] for f in files)
+    nbytes = sum(a.nbytes for f in files for a in f)
+    group = tlc._Group(True, Bp, rows, pin=True)
+    whole = tuple(np.concatenate([f[k] for f in files]) for k in range(3))
+
+    def per_file(put):
+        r0 = 0
+        for f in files:
+            put(group, r0, *f)
+            r0 += f[0].shape[0]
+
+    got = {}
+    for load in (False, True):
+        for name, put in COPY_WAYS.items():
+            for unit, run in (("a file a call", lambda: per_file(put)),
+                              ("one call", lambda: put(group, 0, *whole))):
+                best = None
+                for _ in range(RUNS):
+                    group.np[0][:] = 0
+                    with (_Load(datas) if load else _NoLoad()):
+                        t0, c0 = time.perf_counter(), time.thread_time()
+                        run()
+                        t = (time.perf_counter() - t0, time.thread_time() - c0)
+                    best = t if best is None or t[0] < best[0] else best
+                    if not np.array_equal(group.np[0], whole[0]):
+                        raise RuntimeError(f"copy split: {name} differs")
+                got[(load, name, unit)] = best
+    log(f"copy split: {len(files)} files, {rows} rows at B={B}, "
+        f"{nbytes} bytes, into a pinned group; s wall [thread CPU], least "
+        f"wall of {RUNS}, load = {pipeline.EXTRACT_WINDOW} extracting "
+        f"threads ({os.cpu_count()} cores): " + "; ".join(
+            f"{'loaded' if load else 'idle'} {name} {unit} {w:.4f} [{c:.4f}]"
+            for (load, name, unit), (w, c) in got.items()))
+
+
+class _NoLoad:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+ROUTE_FILES = ("bench_1080p_hq.mp4", "bench_4k.mp4", "mid.mp4")
+ROUTE_BS = (4096, 16384)
+
+
+def _add_traces_copied(self, traces, B):
+    """LaneBatcher.add_traces with every file packed apart (pack_lanes) and
+    copied in (add): the corpus driver's route, on the batcher's thread."""
+    p1, bitw, lens, spans = tlc.pack_lanes(traces, B)
+    return self.add(p1, bitw, lens), spans
+
+
+def route_split(dev):
+    """A single file's two routes into a dispatch group: add_traces (the
+    native packer writes at the group's fill row) against pack_lanes into
+    arrays of the file's own, then add (the copy): the stage alone (one
+    file into a group that does not dispatch), and device_compress whole
+    with LaneBatcher.add_traces swapped for the copied route, in turns,
+    least of RUNS each; the containers equal."""
+    real = tlc.LaneBatcher.add_traces
+    for name in ROUTE_FILES:
+        with open(os.path.join(ROOT, "data", name), "rb") as f:
+            data = f.read()
+        traces = pipeline.extract_traces(data, scope="gop",
+                                         want_slots=False)[3]
+        for B in ROUTE_BS:
+            L = native.lane_rows(traces, B)
+            st, outs = Stages(), {}
+            for _ in range(RUNS):
+                for way, fn in (("in place", real),
+                                ("copied", _add_traces_copied)):
+                    bat = tlc.LaneBatcher(dev, L + 1)
+                    st.time(f"stage {way}", lambda: fn(bat, traces, B))
+                    bat.close()
+                    try:
+                        tlc.LaneBatcher.add_traces = fn
+                        outs[way] = st.time(
+                            f"device_compress {way}",
+                            lambda: pipeline.device_compress(
+                                data, scope="gop", substream_bins=B,
+                                device=dev))
+                    finally:
+                        tlc.LaneBatcher.add_traces = real
+            if outs["in place"] != outs["copied"]:
+                raise RuntimeError("route split: the containers differ")
+            log(f"route split {name} B={B}: {len(data)} bytes, "
+                f"{sum(map(len, traces))} bins, {L} rows, ms, least of "
+                f"{RUNS}: {st.line()}")
 
 
 def lane_transfer_parts(dev):
@@ -557,12 +886,16 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     log(f"device: {torch.cuda.get_device_name(0)} ({card_line()})")
-    # warm-up: builds, first launches, allocator
+    warm_up(dev)
+    for part in parts:
+        PARTS[part](dev)
+
+
+def warm_up(dev):
+    """Builds, first launches, allocator."""
     with open(os.path.join(ROOT, "data", CLIPS[0]), "rb") as f:
         pipeline.device_compress(f.read(), scope="slice", substream_bins=0,
                                  device=dev)
-    for part in parts:
-        PARTS[part](dev)
 
 
 def est_all(dev):
@@ -579,7 +912,10 @@ def decode_all(dev):
 
 PARTS = {"est": est_all, "pack": lane_pack_stage, "group": group_stages,
          "lane": lane_stages, "corpus": corpus_split, "window": corpus_window,
-         "transfer": lane_transfer_parts, "decode": decode_all}
+         "benchcorpus": bench_corpus, "bigcorpus": big_corpus,
+         "copy": copy_split, "route": route_split,
+         "transfer": lane_transfer_parts,
+         "decode": decode_all}
 
 
 if __name__ == "__main__":

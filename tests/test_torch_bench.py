@@ -82,6 +82,8 @@ def test_device_corpus_matches_jax_corpus(corpus_run):
     assert res["dispatches"] == 1 and res["overflows"] == [0] * bench.PASSES
     assert res["corpus_bins"] > 0
     assert len(res["pass_s"]) == len(res["pass_mb_s"]) == bench.PASSES
+    assert len(res["pack_s"]) == len(res["copy_s"]) == bench.PASSES
+    assert all(s >= 0 for s in res["pack_s"] + res["copy_s"])
     split = res["stage_split_480p"]
     assert split["file"] == os.path.basename(max(PATHS, key=os.path.getsize))
     assert split["bins"] > 0

@@ -200,6 +200,25 @@ def test_group_ring_on_the_cpu_is_fresh_and_checks_b():
         tlc._groups.take(False, tlc.MAX_B + 256, 1, torch.device("cpu"))
 
 
+@pytest.mark.parametrize("hold", [True, False])
+def test_group_put_copies_rows_either_way(monkeypatch, hold):
+    """_Group.put writes each array at rows r0 on and nothing else, held
+    under HOLD_GIL_BYTES (memoryviews) or by numpy above it, from strided
+    sources and other integer types."""
+    monkeypatch.setattr(tlc, "HOLD_GIL_BYTES", 1 << 40 if hold else 0)
+    rng = np.random.default_rng(7)
+    g = tlc._groups.take(True, 512, 9, torch.device("cpu"))
+    for a in g.np:
+        a[...] = 0
+    p1 = rng.integers(0, 256, (6, 768), dtype=np.uint8)[::2]
+    bitw = rng.integers(-2**31, 2**31, (3, 16), dtype=np.int64)
+    lens = np.array([512, 1, 0], np.int64)
+    g.put(4, p1, bitw, lens)
+    for dst, src in zip(g.np, (p1, bitw, lens)):
+        np.testing.assert_array_equal(dst[4:7], src)
+        assert not dst[:4].any() and not dst[7:].any()
+
+
 def test_lane_pack_into_checks_its_destinations():
     tr = _cut("rt_ctr.mkv", [600])
     L = native.lane_rows(tr, B)

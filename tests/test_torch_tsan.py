@@ -2,11 +2,13 @@
 library (avrecode_tpu_torch/host/drivers/tsan_driver.cc, built by
 host/Makefile's tsan_driver target): GOP-parallel compress and decompress,
 threaded trace extraction, the threaded lane packer (host/src/lanepack.cc)
-in both of its passes, and the window of extractions beside packing that
+in both of its passes, and the window of files that
 parallel/pipeline.py::device_compress_corpus runs (EXTRACT_WINDOW at once,
-each handle closed while the files after it still extract).  The driver's packed
-rows are held to the production native.lane_pack and to the numpy packers
-(split_lanes_recs + pack_p1_idx) on the same traces, byte for byte.
+each extracted, packed and its handle closed on its own thread while the
+files after it still extract, its rows then copied in order).  The
+driver's packed rows are held to the production native.lane_pack and to
+the numpy packers (split_lanes_recs + pack_p1_idx) on the same traces,
+byte for byte.
 
 The driver also runs two compress calls on two threads at once.  With
 AVTPU_BILL set, both used to add to one process-wide ledger unguarded (a
@@ -119,14 +121,21 @@ def test_tsan_shared_buffer_packs(run):
 
 
 def test_tsan_corpus_window(run):
-    """The corpus window of device_compress_corpus, EXTRACT_WINDOW
-    extractions at once beside the threaded packer, each handle closed
-    while the files after it still extract, over enough files that the
-    window refills: no report."""
-    out, _ = run
+    """The corpus window of device_compress_corpus, EXTRACT_WINDOW files at
+    once, each extracted and packed by the threaded packer into buffers of
+    its own on its thread and its handle closed there while the files
+    after it still extract, the rows copied into one shared buffer in
+    order by the driver's main thread, over enough files that the window
+    refills: no report, and the shared buffer holds every file's rows at
+    B = 4096."""
+    out, blob = run
     window = tpipe.EXTRACT_WINDOW
-    want = f"corpus window={window} files={max(len(CLIPS), window + 2)}"
-    assert want in out.splitlines(), out
+    n_files = max(len(CLIPS), window + 2)
+    rows = {p["clip"]: p["L"] for p in _packs(blob)
+            if (p["B"], p["variant"]) == (4096, 0)}
+    want = sum(rows[k % len(CLIPS)] for k in range(n_files))
+    line = f"corpus window={window} files={n_files} rows={want}"
+    assert line in out.splitlines(), out
 
 
 def test_tsan_threaded_paths(run):
