@@ -8,7 +8,10 @@
 //   - avtpu_compress_mt     (parallel GOP compression, gop scope), equal to
 //                           serial, and two serial calls on two threads
 //   - avtpu_decompress_mt   (parallel GOP decompression), equal to the input
-//   - avtpu_xopen           (parallel GOP trace extraction)
+//   - avtpu_xopen           (parallel GOP trace extraction), and its
+//                           counters (avtpu_xstats), written on the GOP
+//                           threads and read on the calling thread after
+//                           the join, held to their order and printed
 //   - avtpu_lane_pack       (up to 16 threads over the lane rows, two passes
 //                           sharing an atomic flag), at a B small enough for
 //                           several threads and at B = 4096, and again with
@@ -49,6 +52,7 @@ void* avtpu_xopen(const uint8_t*, size_t, int, int, int, const uint8_t**,
 void avtpu_xtrace(void*, size_t, const uint64_t**, size_t*, const uint8_t**,
                   const uint8_t**, size_t*);
 void avtpu_xclose(void*);
+size_t avtpu_xstats(void*, int64_t*, size_t, int64_t*, size_t);
 void avtpu_free(uint8_t*);
 int avtpu_lane_pack(const uint64_t* const*, const int64_t*, const int64_t*,
                     int, int, int, int64_t, uint8_t*, uint16_t*, int32_t*,
@@ -91,8 +95,33 @@ std::vector<uint8_t> compress(const std::vector<uint8_t>& in, int scope,
   return v;
 }
 
+// the extraction counters of a handle (avtpu_xstats): its steps in order,
+// passes A and B within the jobs' wall, the jobs' thread CPU within their
+// wall and their wall within the pool's, every job inside the GOP phase;
+// printed as "xstats WHAT CLIP jobs=J slices=S failed=F threads=T"
+void check_xstats(void* h, const char* what, const char* clip) {
+  int64_t c[12];
+  const size_t n = avtpu_xstats(h, c, 12, nullptr, 0);
+  std::vector<int64_t> t(3 * n);
+  avtpu_xstats(h, c, 0, t.data(), n);
+  const int64_t walked = c[1], joined = c[2], threads = c[4], jobs = c[5];
+  const int64_t parse = c[8], model = c[9], job = c[10], cpu = c[11];
+  if (jobs != (int64_t)n || jobs < 1 || c[0] > walked || walked > joined ||
+      joined > c[3] || parse + model > job || cpu > job ||
+      job > threads * (joined - walked))
+    fail("extraction counters out of order", clip);
+  for (size_t j = 0; j < n; j++)
+    if (t[3 * j + 1] < walked || t[3 * j + 1] > t[3 * j + 2] ||
+        t[3 * j + 2] > joined)
+      fail("a GOP job outside the GOP phase", clip);
+  printf("xstats %s %s jobs=%lld slices=%lld failed=%lld threads=%lld\n",
+         what, clip, (long long)jobs, (long long)c[6], (long long)c[7],
+         (long long)threads);
+}
+
 // threaded compress (gop scope) equal to serial; threaded decompress equal
-// to the input; threaded extraction with every trace buffer touched
+// to the input; threaded extraction with every trace buffer touched and
+// its counters read
 void threaded_codec(const std::vector<uint8_t>& in, const char* clip) {
   std::vector<uint8_t> mt = compress(in, kScopeGop, kThreads);
   if (mt.empty() || mt != compress(in, kScopeGop, 1))
@@ -108,6 +137,7 @@ void threaded_codec(const std::vector<uint8_t>& in, const char* clip) {
   void* h = avtpu_xopen(in.data(), in.size(), kScopeGop, kThreads, 1, &meta,
                         &meta_len, &n_traces);
   if (!h) fail("xopen returned null", clip);
+  check_xstats(h, "codec", clip);
   uint64_t sum = 0;
   for (size_t i = 0; i < n_traces; i++) {
     const uint64_t* recs = nullptr;
@@ -129,13 +159,16 @@ struct Extracted {
 };
 
 // gop-scope extraction without the slot remap, as device_compress_corpus
-// calls it (threads 0 = one job a core)
-Extracted extract(const std::vector<uint8_t>& in) {
+// calls it (threads 0 = one job a core); `clip` names it where its
+// counters are to be read and printed
+Extracted extract(const std::vector<uint8_t>& in,
+                  const char* clip = nullptr) {
   Extracted x;
   const uint8_t* meta = nullptr;
   size_t meta_len = 0, n_traces = 0;
   x.handle = avtpu_xopen(in.data(), in.size(), kScopeGop, 0, 0, &meta,
                          &meta_len, &n_traces);
+  if (x.handle && clip) check_xstats(x.handle, "window", clip);
   for (size_t i = 0; x.handle && i < n_traces; i++) {
     const uint64_t* recs = nullptr;
     const uint8_t *limits = nullptr, *cls = nullptr;
@@ -328,8 +361,9 @@ int main(int argc, char** argv) {
   }
 
   // the corpus window: up to `window` files at once, each on a thread
-  // that extracts it, packs its records into buffers of its own and
-  // closes its handle while the threads after it still extract; this
+  // that extracts it (reading its counters), packs its records into
+  // buffers of its own and closes its handle while the threads after it
+  // still extract; this
   // thread takes the files in order (file k + window starts once file k
   // is taken), writes the packs of the first pass over the clips to
   // <packs.bin> and copies each file's rows at B = kLargeB into one
@@ -344,7 +378,7 @@ int main(int argc, char** argv) {
   std::vector<std::thread> working(n_files);
   auto start = [&](int k) {
     working[k] = std::thread([&, k] {
-      Extracted x = extract(in[k % n_clips]);
+      Extracted x = extract(in[k % n_clips], argv[2 + k % n_clips]);
       if (!x.handle) fail("xopen returned null", argv[2 + k % n_clips]);
       packed[k] = pack_clip(k % n_clips, x);
       avtpu_xclose(x.handle);

@@ -23,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..spans import closed, count, current, span
+
 _HOST = Path(__file__).resolve().parent
 BUILD_DIR = _HOST.parent.parent / "build" / "torch_host"
 
@@ -212,6 +214,14 @@ def _bind(lib):
     ]
     lib.avtpu_xclose.restype = None
     lib.avtpu_xclose.argtypes = [ctypes.c_void_p]
+    lib.avtpu_xstats.restype = ctypes.c_size_t
+    lib.avtpu_xstats.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_size_t,
+    ]
     lib.avtpu_refscore.restype = ctypes.c_int
     lib.avtpu_refscore.argtypes = [
         ctypes.c_char_p,
@@ -338,6 +348,45 @@ class NativeTrace:
         return self._p1s
 
 
+XSTATS = 12  # the counters avtpu_xstats writes
+
+
+def _extraction_spans(lib, ptr, parent):
+    """The native extraction's counters (avtpu_xstats) into the bound
+    call's stats: its walk and stitch (extract_walk_s, extract_stitch_s);
+    its GOP jobs (gop_jobs), their slices (gop_slices) and the slices not
+    recoded (gop_slices_failed); pass A, the parse, and pass B, the
+    model's replay, summed over the slices (gop_parse_s, gop_model_s); the
+    jobs' wall and thread CPU time (gop_job_s, gop_cpu_s); the pool's
+    threads times the GOP phase's wall (gop_pool_s).  Where the call is
+    recorded, the walk, the GOP phase, each job (on its own thread) and the
+    stitch are kept as spans under `parent`: the library's steady_clock is
+    perf_counter_ns's clock."""
+    c = (ctypes.c_int64 * XSTATS)()
+    n_jobs = lib.avtpu_xstats(ptr, c, XSTATS, None, 0)
+    (t_start, t_walked, t_joined, t_end, threads, jobs, slices, failed,
+     parse_ns, model_ns, job_ns, cpu_ns) = c
+    for key, value in (
+            ("extract_walk_s", (t_walked - t_start) / 1e9),
+            ("extract_stitch_s", (t_end - t_joined) / 1e9),
+            ("gop_jobs", jobs), ("gop_slices", slices),
+            ("gop_slices_failed", failed), ("gop_parse_s", parse_ns / 1e9),
+            ("gop_model_s", model_ns / 1e9), ("gop_job_s", job_ns / 1e9),
+            ("gop_cpu_s", cpu_ns / 1e9),
+            ("gop_pool_s", threads * (t_joined - t_walked) / 1e9)):
+        count(key, value)
+    if parent is None:
+        return
+    times = (ctypes.c_int64 * (3 * n_jobs))()
+    lib.avtpu_xstats(ptr, c, 0, times, n_jobs)
+    closed("extract_walk", t_start, t_walked, parent=parent)
+    phase = closed("gop_phase", t_walked, t_joined, parent=parent)
+    for j in range(n_jobs):
+        tid, t0, t1 = times[3 * j: 3 * j + 3]
+        closed("gop_job", t0, t1, tid=tid, parent=phase)
+    closed("extract_stitch", t_joined, t_end, parent=parent)
+
+
 def extract(data, scope="slice", threads=1, want_slots=True):
     """Native host stage of the device pipeline: returns
     (sps_list, pps_list, blocks, traces) matching codec._scan_blocks
@@ -351,24 +400,41 @@ def extract(data, scope="slice", threads=1, want_slots=True):
     want_slots=False skips the export-time slot remap / halving-limit
     build (model.h::finalize_trace): the lane-parallel device coder reads
     only (bit, p1) from the records, fields the remap never touches, so
-    traces land one pass cheaper.  slots/limits are then unavailable."""
-    import numpy as np
+    traces land one pass cheaper.  slots/limits are then unavailable.
 
-    from ..utils.container import KIND_LITERAL, KIND_SLICE, Reader
-
+    In a call of an entry (spans.call) the native call is span
+    extract_native, the Python after it (the counters, the trace views,
+    the meta decode) extract_py, and the library's counters go to the
+    call's stats (_extraction_spans)."""
     lib = _load()
     assert lib is not None
     scope_id = {"slice": 1, "gop": 2}[scope]
     meta_p = ctypes.POINTER(ctypes.c_uint8)()
     meta_len = ctypes.c_size_t()
     n_traces = ctypes.c_size_t()
-    ptr = lib.avtpu_xopen(
-        bytes(data), len(data), scope_id, threads, 1 if want_slots else 0,
-        ctypes.byref(meta_p), ctypes.byref(meta_len), ctypes.byref(n_traces),
-    )
+    data = bytes(data)
+    with span("extract_native") as native_span:
+        ptr = lib.avtpu_xopen(
+            data, len(data), scope_id, threads, 1 if want_slots else 0,
+            ctypes.byref(meta_p), ctypes.byref(meta_len),
+            ctypes.byref(n_traces),
+        )
     if not ptr:
         raise ValueError("native extract failed")
     handle = _XtractHandle(lib, ptr)
+    with span("extract_py"):
+        if current() is not None:
+            _extraction_spans(lib, ptr, native_span.id)
+        return _views(lib, ptr, handle, meta_p, meta_len, n_traces)
+
+
+def _views(lib, ptr, handle, meta_p, meta_len, n_traces):
+    """extract's result from an open handle: the meta blob decoded, each
+    trace's records viewed in place."""
+    import numpy as np
+
+    from ..utils.container import KIND_LITERAL, KIND_SLICE, Reader
+
     blob = ctypes.string_at(meta_p, meta_len.value)  # meta is small
 
     traces = []

@@ -12,8 +12,12 @@
 #include <mutex>
 #include <string>
 #include <thread>
+#include <chrono>
 #include <cstdio>
 #include <cstdlib>
+#include <sys/syscall.h>
+#include <time.h>
+#include <unistd.h>
 
 #include "container.h"
 #include "h264.h"
@@ -786,16 +790,55 @@ static Bytes compress_gop_mt(const uint8_t* data, size_t size, int threads) {
 //     kind=0: literal blob
 //     kind=1: varint nal_size; blob head; varint mb_count; varint drop;
 //             blob tail; u8 has_trace
+// Where an extraction's time went, read by the caller's spans through
+// avtpu_xstats.  Times are steady_clock ns (CLOCK_MONOTONIC, the clock of
+// Python's time.perf_counter_ns), CPU is CLOCK_THREAD_CPUTIME_ID.  Each GOP
+// job writes its own counters on its own thread; they are summed after the
+// join, so nothing is shared while the jobs run.  Slice scope is one pass
+// on the calling thread, reported as one job (two where the optimistic
+// pass is run again) with no walk of its own.
+struct XJobTime {
+  int64_t tid, t0, t1;
+};
+struct XStats {
+  int64_t t_start = 0, t_walked = 0, t_joined = 0, t_end = 0;
+  int64_t threads = 0, jobs = 0, slices = 0, failed = 0;
+  int64_t parse_ns = 0, model_ns = 0, job_ns = 0, cpu_ns = 0;
+  std::vector<XJobTime> job_times;
+};
+static const size_t kXStats = 12;  // counters avtpu_xstats writes
+
+static int64_t steady_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+static int64_t thread_cpu_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+  return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
+}
+
+static int64_t thread_id() { return (int64_t)syscall(SYS_gettid); }
+
 struct XtractResult {
   Bytes meta;
   std::vector<std::shared_ptr<RecodeModel>> traces;
   // lane-parallel consumers read only (bit, p1) from the records — fields
   // the slot remap never touches — so finalize_trace can be skipped
   bool want_slots = true;
+  XStats stats;
 };
 
 static XtractResult extract_open_impl(const uint8_t* data, size_t size,
-                                      int scope, bool optimistic) {
+                                      int scope, bool optimistic,
+                                      XStats* st) {
+  XJobTime pass{thread_id(), steady_ns(), 0};
+  int64_t cpu0 = thread_cpu_ns();
+  if (!st->t_start) st->t_start = st->t_walked = pass.t0;
+  st->threads = 1;
+  st->jobs++;
   bool per_gop = scope == SCOPE_GOP;
   bool opt_shared = optimistic && per_gop;
   Walker w(data, size);
@@ -821,9 +864,15 @@ static XtractResult extract_open_impl(const uint8_t* data, size_t size,
       prev.reset();
     }
     bool advance = rec.hdr.first_mb_in_slice == 0 || !cur;
+    int64_t a0 = steady_ns();
+    st->slices++;
     {
       Bytes esc = escape_rbsp(rec.rbsp.data() + 1, rec.rbsp.size() - 1);
-      if (!canonical_nal(data, rec, esc)) return;
+      if (!canonical_nal(data, rec, esc)) {
+        st->parse_ns += steady_ns() - a0;
+        st->failed++;
+        return;
+      }
     }
     PicState scratch;
     const PicState* cand_prev;
@@ -873,10 +922,15 @@ static XtractResult extract_open_impl(const uint8_t* data, size_t size,
     } catch (const ParseError&) {
       recorder->set_defer_trace(false);
       recorder->truncate_trace(mark);
+      st->parse_ns += steady_ns() - a0;
+      st->failed++;
       return;
     }
     recorder->set_defer_trace(false);
+    int64_t b0 = steady_ns();
+    st->parse_ns += b0 - a0;
     recorder->replay_trace_tail(mark);
+    st->model_ns += steady_ns() - b0;
     if (advance) prev = std::move(cur);
     cur = std::make_unique<PicState>(std::move(scratch));
     slice_id = sid;
@@ -912,6 +966,10 @@ static XtractResult extract_open_impl(const uint8_t* data, size_t size,
     lb.b.lit_len = size - pos;
     blocks.push_back(std::move(lb));
   }
+  st->cpu_ns += thread_cpu_ns() - cpu0;
+  pass.t1 = st->t_joined = steady_ns();
+  st->job_ns += pass.t1 - pass.t0;
+  st->job_times.push_back(pass);
 
   XtractResult res;
   CWriter out;
@@ -936,6 +994,7 @@ static XtractResult extract_open_impl(const uint8_t* data, size_t size,
     if (xb.rec) res.traces.push_back(xb.rec);
   }
   res.meta = std::move(out.out);
+  st->t_end = steady_ns();
   return res;
 }
 
@@ -950,6 +1009,9 @@ struct XGopJob {
   std::vector<uint8_t> ok;
   std::shared_ptr<RecodeModel> rec;  // GOP recorder (trace carrier)
   int first_ok = -1;
+  // written on the job's thread only (see XStats)
+  int64_t parse_ns = 0, model_ns = 0, cpu_ns = 0;
+  XJobTime time{0, 0, 0};
 };
 
 // Two-pass trace extraction (same split as process_gop): pass A parses
@@ -970,9 +1032,14 @@ static void process_gop_x_impl(const uint8_t* data,
     const SliceRec& rec = sl[i];
     size_t k = i - job->begin;
     bool advance = rec.hdr.first_mb_in_slice == 0 || !cur;
+    // pass A: the escape check, parse, CABAC decode and tail verify
+    int64_t a0 = steady_ns();
     {
       Bytes esc = escape_rbsp(rec.rbsp.data() + 1, rec.rbsp.size() - 1);
-      if (!canonical_nal(data, rec, esc)) continue;
+      if (!canonical_nal(data, rec, esc)) {
+        job->parse_ns += steady_ns() - a0;
+        continue;
+      }
     }
     PicState scratch;
     const PicState* cand_prev;
@@ -1016,10 +1083,15 @@ static void process_gop_x_impl(const uint8_t* data,
     } catch (const ParseError&) {
       recorder->set_defer_trace(false);
       recorder->truncate_trace(mark);
+      job->parse_ns += steady_ns() - a0;
       continue;
     }
     recorder->set_defer_trace(false);
+    // pass B: the model replays the slice's records, writing each bin's p1
+    int64_t b0 = steady_ns();
+    job->parse_ns += b0 - a0;
     recorder->replay_trace_tail(mark);
+    job->model_ns += steady_ns() - b0;
     if (advance) prev = std::move(cur);
     cur = std::make_unique<PicState>(std::move(scratch));
     slice_id = sid;
@@ -1049,6 +1121,10 @@ static void process_gop_x(const uint8_t* data,
 
 static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
                                         int threads, bool want_slots) {
+  XtractResult res;
+  res.want_slots = want_slots;
+  XStats& st = res.stats;
+  st.t_start = steady_ns();
   Walker w(data, size);
   std::vector<SliceRec> sl;
   w.slices([&](const SliceRec& rec) { sl.push_back(rec); });
@@ -1062,12 +1138,18 @@ static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
       jobs.push_back({i, sl.size(), {}, {}, nullptr, -1});
     }
   }
+  st.t_walked = steady_ns();
   std::atomic<size_t> next{0};
   auto worker = [&]() {
     for (;;) {
       size_t j = next.fetch_add(1);
       if (j >= jobs.size()) return;
-      process_gop_x(data, sl, &jobs[j], want_slots);
+      XGopJob& job = jobs[j];
+      job.time = {thread_id(), steady_ns(), 0};
+      int64_t cpu0 = thread_cpu_ns();
+      process_gop_x(data, sl, &job, want_slots);
+      job.cpu_ns = thread_cpu_ns() - cpu0;
+      job.time.t1 = steady_ns();
     }
   };
   int nt = std::max(1, std::min<int>(threads, (int)jobs.size()));
@@ -1075,9 +1157,19 @@ static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
   for (int t = 1; t < nt; t++) pool.emplace_back(worker);
   worker();
   for (auto& t : pool) t.join();
+  st.t_joined = steady_ns();
+  st.threads = nt;
+  for (auto& job : jobs) {
+    st.jobs++;
+    st.slices += job.end - job.begin;
+    for (uint8_t ok : job.ok) st.failed += !ok;
+    st.parse_ns += job.parse_ns;
+    st.model_ns += job.model_ns;
+    st.cpu_ns += job.cpu_ns;
+    st.job_ns += job.time.t1 - job.time.t0;
+    st.job_times.push_back(job.time);
+  }
 
-  XtractResult res;
-  res.want_slots = want_slots;
   CWriter out;
   out.varint(w.all_sps_.size());
   for (auto& b : w.all_sps_) out.blob(b);
@@ -1124,15 +1216,20 @@ static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
     out.blob(data + pos, size - pos);
   }
   res.meta = std::move(out.out);
+  st.t_end = steady_ns();
   return res;
 }
 
 static XtractResult extract_open(const uint8_t* data, size_t size, int scope) {
+  XStats st;
+  XtractResult res;
   try {
-    return extract_open_impl(data, size, scope, /*optimistic=*/true);
+    res = extract_open_impl(data, size, scope, /*optimistic=*/true, &st);
   } catch (const OptimisticAbort&) {
-    return extract_open_impl(data, size, scope, /*optimistic=*/false);
+    res = extract_open_impl(data, size, scope, /*optimistic=*/false, &st);
   }
+  res.stats = std::move(st);
+  return res;
 }
 
 static void dump_bill() {
@@ -1637,6 +1734,30 @@ void avtpu_xtrace(void* handle, size_t i, const uint64_t** recs,
 }
 
 void avtpu_xclose(void* handle) { delete (avtpu::XtractResult*)handle; }
+
+// Where the extraction behind the handle spent its time (XStats): the
+// first min(n, 12) of its counters into out: steady_clock ns at its start,
+// at the end of the walk, at the GOP jobs' join and at its end; the job
+// pool's threads; the jobs, their slices and the slices not recoded; pass
+// A (parse) and pass B (model) ns, summed over the slices; the jobs' wall
+// and thread CPU ns, summed over them.  Then the first max_jobs jobs'
+// (thread id, start ns, end ns) into job_times.  Returns the job count.
+size_t avtpu_xstats(void* handle, int64_t* out, size_t n, int64_t* job_times,
+                    size_t max_jobs) {
+  const avtpu::XStats& st = ((avtpu::XtractResult*)handle)->stats;
+  const int64_t all[avtpu::kXStats] = {
+      st.t_start, st.t_walked, st.t_joined, st.t_end,
+      st.threads, st.jobs, st.slices, st.failed,
+      st.parse_ns, st.model_ns, st.job_ns, st.cpu_ns};
+  std::copy(all, all + std::min(n, avtpu::kXStats), out);
+  size_t k = std::min(max_jobs, st.job_times.size());
+  for (size_t j = 0; j < k; j++) {
+    job_times[3 * j] = st.job_times[j].tid;
+    job_times[3 * j + 1] = st.job_times[j].t0;
+    job_times[3 * j + 2] = st.job_times[j].t1;
+  }
+  return st.job_times.size();
+}
 
 // Cheap GOP index (NAL + slice-header scan only, no CABAC parse): the
 // multi-host work decomposition (parallel/multihost.py).

@@ -54,7 +54,6 @@ the unsigned compare the JAX version builds from a sign flip.
 import bisect
 import functools
 import threading
-import time
 
 import numpy as np
 import torch
@@ -62,6 +61,7 @@ import torch
 from .. import resolve_device
 from ..host import native
 from ..models.h264_model import _make_envelope
+from ..spans import count, span
 from ._mix_tables import SQUASH
 
 TOP = 1 << 24
@@ -818,17 +818,19 @@ def upload_group(group, n, dev):
     """The group's first n rows -> (p1, bitw, lens) on `dev`: one
     non_blocking copy_ an array straight from the group's buffers, no host
     copy between the packer and the bus, no wait for the card.  The event
-    recorded behind the copies frees the group for its next fill."""
-    bufs = (group.p1, group.bitw, group.lens)
-    prob = tuple(torch.empty((n, *t.shape[1:]), dtype=t.dtype, device=dev)
-                 for t in bufs)
-    for dst, src in zip(prob, bufs):
-        dst.copy_(src[:n], non_blocking=True)
-    if dev.type == "cuda":
-        group.event = torch.cuda.Event()
-        group.event.record(torch.cuda.current_stream(dev))
-    _groups.release(group)
-    return prob
+    recorded behind the copies frees the group for its next fill.  Span
+    upload."""
+    with span("upload"):
+        bufs = (group.p1, group.bitw, group.lens)
+        prob = tuple(torch.empty((n, *t.shape[1:]), dtype=t.dtype,
+                                 device=dev) for t in bufs)
+        for dst, src in zip(prob, bufs):
+            dst.copy_(src[:n], non_blocking=True)
+        if dev.type == "cuda":
+            group.event = torch.cuda.Event()
+            group.event.record(torch.cuda.current_stream(dev))
+        _groups.release(group)
+        return prob
 
 
 def _launch(n, lens, prob, Bp, bits_per_byte):
@@ -846,9 +848,12 @@ def dispatch_group(group, n, dev, bits_per_byte=4):
     (rows, lens, out, nbytes, total, the group's device inputs), the inputs
     in the form uploaded.  bits_per_byte sets the byte bound a lane
     (max_bytes); a group with a lane past it is coded again by
-    collect_groups from the inputs kept in the handle."""
-    prob = upload_group(group, n, dev)
-    return _launch(n, prob[2], prob, group.Bp, bits_per_byte)
+    collect_groups from the inputs kept in the handle.  Span dispatch
+    (the upload's span inside it); counted in stats "dispatches"."""
+    count("dispatches")
+    with span("dispatch"):
+        prob = upload_group(group, n, dev)
+        return _launch(n, prob[2], prob, group.Bp, bits_per_byte)
 
 
 def lane_dispatch_compact(p1, bitw, lens, device=None, bits_per_byte=4):
@@ -909,23 +914,25 @@ def collect_groups(pending):
     the byte bound: such a group is coded again with lane_encode (an
     index-form group's p1 first unpacked on its device by unpack_p1_idx),
     finalized exactly on the host (finalize_lanes), and given in the same
-    form, each lane's bytes padded to the longest."""
-    groups = []
-    for n, _, out, nbytes, total, prob in pending:
-        got = read_group(n, out, nbytes, total)
-        if got is None:
-            lane_collect.overflows += 1
-            if index_form(prob[0]):
-                prob = (unpack_p1_idx(prob[0]), *prob[1:])
-            tok, car, ftok, fcar = (t[:n].cpu().numpy()
-                                    for t in lane_encode(*prob))
-            streams = finalize_lanes(tok, car, ftok, fcar,
-                                     prob[2][:n].cpu().numpy())
-            w = max(map(len, streams), default=0)
-            got = (np.array([len(s) for s in streams], np.int32), w,
-                   b"".join(s.ljust(w, b"\0") for s in streams))
-        groups.append(got)
-    return groups
+    form, each lane's bytes padded to the longest.  Span collect."""
+    with span("collect"):
+        return [_collect_group(*handle) for handle in pending]
+
+
+def _collect_group(n, _, out, nbytes, total, prob):
+    got = read_group(n, out, nbytes, total)
+    if got is None:
+        lane_collect.overflows += 1
+        if index_form(prob[0]):
+            prob = (unpack_p1_idx(prob[0]), *prob[1:])
+        tok, car, ftok, fcar = (t[:n].cpu().numpy()
+                                for t in lane_encode(*prob))
+        streams = finalize_lanes(tok, car, ftok, fcar,
+                                 prob[2][:n].cpu().numpy())
+        w = max(map(len, streams), default=0)
+        got = (np.array([len(s) for s in streams], np.int32), w,
+               b"".join(s.ljust(w, b"\0") for s in streams))
+    return got
 
 
 def lane_collect(pending):
@@ -976,16 +983,18 @@ class GroupStreams:
 
     def envelope(self, lo, hi):
         """_make_envelope of the streams of lanes [lo, hi), over memoryview
-        slices of the groups' bytes (no bytes object a lane)."""
-        g = bisect.bisect_right(self.starts, lo) - 1
-        parts = []
-        for l in range(lo, hi):
-            while l >= self.starts[g + 1]:
-                g += 1
-            r = l - self.starts[g]
-            w = self.ws[g]
-            parts.append(self.flats[g][r * w: r * w + self.nbs[g][r]])
-        return _make_envelope(parts)
+        slices of the groups' bytes (no bytes object a lane).  Span
+        envelope."""
+        with span("envelope"):
+            g = bisect.bisect_right(self.starts, lo) - 1
+            parts = []
+            for l in range(lo, hi):
+                while l >= self.starts[g + 1]:
+                    g += 1
+                r = l - self.starts[g]
+                w = self.ws[g]
+                parts.append(self.flats[g][r * w: r * w + self.nbs[g][r]])
+            return _make_envelope(parts)
 
 
 class LaneBatcher:
@@ -1012,9 +1021,7 @@ class LaneBatcher:
         self.acc = 0  # its rows filled
         self.index = True  # the form of the next group
         self.pending = []  # dispatched group handles, global row order
-        self.dispatches = 0  # groups dispatched
         self.rows = 0  # total rows appended
-        self.copy_s = 0.0  # host clock spent copying rows in (add)
 
     def _current(self, index, Bp):
         """The group being filled, in the given form and width: a group
@@ -1033,11 +1040,10 @@ class LaneBatcher:
     def _flush(self):
         self.pending.append(dispatch_group(self.group, self.acc, self.dev))
         self.group, self.acc = None, 0
-        self.dispatches += 1
 
     def add(self, p1, bitw, lens):
         """Append one file's numpy rows (p1 in either upload form), copied
-        into the groups; returns (global_lo, global_hi)."""
+        into the groups (span copy); returns (global_lo, global_hi)."""
         index, Bp = index_form(p1), lane_bins(p1)
         n, done = p1.shape[0], 0
         lo = self.rows
@@ -1045,10 +1051,9 @@ class LaneBatcher:
         while done < n:
             g = self._current(index, Bp)
             k = min(n - done, self.big - self.acc)
-            t0 = time.perf_counter()
-            g.put(self.acc, p1[done:done + k], bitw[done:done + k],
-                  lens[done:done + k])
-            self.copy_s += time.perf_counter() - t0
+            with span("copy"):
+                g.put(self.acc, p1[done:done + k], bitw[done:done + k],
+                      lens[done:done + k])
             self.acc += k
             done += k
             if self.acc == self.big:
@@ -1059,25 +1064,29 @@ class LaneBatcher:
         """Append one file's traces cut into lanes of B bins (pack_lanes'
         rows and rule); returns ((global_lo, global_hi), spans), spans[i]
         the lane range of traces[i] within the file.  Native traces that
-        fit in the group's free rows are packed straight into them."""
+        fit in the group's free rows are packed straight into them.  Span
+        pack, and copy where rows packed apart are copied in."""
         if not all(hasattr(t, "recs32") for t in traces):
-            p1, bitw, lens, spans = pack_lanes(traces, B)
+            with span("pack"):
+                p1, bitw, lens, spans = pack_lanes(traces, B)
             return self.add(p1, bitw, lens), spans
         Bp = -(-max(B, 1) // CHUNK) * CHUNK
         L = native.lane_rows(traces, B)
         g = self._current(self.index, Bp)
         r0 = self.acc
         if L > self.big - r0:
-            p1, bitw, lens, spans = native.lane_pack(traces, B, Bp)
+            with span("pack"):
+                p1, bitw, lens, spans = native.lane_pack(traces, B, Bp)
             return self.add(p1, bitw, lens), spans
         # the other form's pass writes a scratch array of its own
         other = (np.empty((L, Bp), np.uint16) if g.index
                  else np.empty((L, 3 * Bp // 2), np.uint8))
         mine = g.np[0][r0:r0 + L]
         bitw, lens = g.np[1][r0:r0 + L], g.np[2][r0:r0 + L]
-        form, spans = native.lane_pack_into(
-            traces, B, Bp, *((mine, other) if g.index else (other, mine)),
-            bitw, lens)
+        with span("pack"):
+            form, spans = native.lane_pack_into(
+                traces, B, Bp,
+                *((mine, other) if g.index else (other, mine)), bitw, lens)
         if (form == 1) != g.index:
             # rows r0 on stay unclaimed (never dispatched): the file goes
             # in a group of its form, after the rows that wait

@@ -39,7 +39,6 @@ returns bytes identical to codec.decompress(blob).
 import collections
 import concurrent.futures
 import os
-import time
 
 import numpy as np
 import torch
@@ -50,6 +49,7 @@ from ..codec import _scan_blocks, compress, decompress, serialize_container
 from ..host import native
 from ..models.h264_model import RecodeModel
 from ..models.trace import N_CLS, TraceModel
+from ..spans import bind, call, count, current, span
 from ..ops.est_coder import (
     encode_traces_est,
     est_collect,
@@ -89,7 +89,15 @@ def extract_traces(data, use_native=None, scope="slice", threads=0,
     parser when it is not, when it rejects the input (unless
     use_native=True), or when use_native=False.  stats["native"] records
     which one ran.  threads: 0=auto (parallel GOP jobs, gop scope),
-    1=serial."""
+    1=serial.  In a call of an entry this is span extract, and the traces'
+    bins are counted (stats "bins")."""
+    with span("extract"):
+        out = _extract(data, use_native, scope, threads, want_slots)
+    count("bins", sum(len(t) for t in out[3]))
+    return out
+
+
+def _extract(data, use_native, scope, threads, want_slots):
     if use_native is not False and native.available():
         try:
             sps, pps, blocks, traces = native.extract(
@@ -130,10 +138,11 @@ def _serialize(scope_id, sps, pps, blocks, traces, streams, substream_bins):
     def finisher(t):
         return t if isinstance(t, bytes) else finmap[id(t)]
 
-    return serialize_container(
-        scope_id, sps, pps, blocks, None, finisher=finisher,
-        substream_bins=substream_bins,
-    )
+    with span("serialise"):
+        return serialize_container(
+            scope_id, sps, pps, blocks, None, finisher=finisher,
+            substream_bins=substream_bins,
+        )
 
 
 def _mesh_lane_encoder(mesh):
@@ -196,7 +205,7 @@ def _mesh_est_streams(traces, mesh):
 
 
 def device_compress(data, mesh=None, scope=None, substream_bins=4096,
-                    device=None):
+                    device=None, stats=None):
     """Full compression with the device entropy stage on `device`, or
     sharded over `mesh` (parallel/mesh.make_mesh; not both).
 
@@ -212,7 +221,13 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
     trace per warp, into a v1 container; a mesh shards the traces.
 
     Output is byte-identical to codec.compress(scope=...,
-    substream_bins=...), with any mesh or none."""
+    substream_bins=...), with any mesh or none.
+
+    stats (optional dict) receives the call's spans and counters, as
+    device_compress_corpus's (spans.KEYS): on the lane path with one
+    device the extraction (extract_*, gop_*), the pack into a group
+    (pack_s), dispatch_s and upload_s, the read-back (collect_s), the
+    envelopes, the container (serialise_s) and the traces' release."""
     if mesh is not None and device is not None:
         raise ValueError("give mesh or device, not both")
     if mesh is not None:
@@ -222,6 +237,12 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
     data = bytes(data)
     if scope is None:
         scope = "gop" if native.available() else "slice"
+    with call("device_compress", stats, index=0):
+        return _device_compress(data, mesh, scope, substream_bins,
+                                None if mesh is not None else dev)
+
+
+def _device_compress(data, mesh, scope, substream_bins, dev):
     # the lane coder reads only (bit, p1): skip the slot remap pass, which
     # only the est path (substream_bins=0) needs
     sps, pps, blocks, traces, _ = extract_traces(
@@ -241,8 +262,11 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
     else:
         streams = encode_traces_est(traces, device=dev)
     scope_id = SCOPE_SLICE if scope == "slice" else SCOPE_GOP
-    return _serialize(scope_id, sps, pps, blocks, traces, streams,
-                      substream_bins)
+    out = _serialize(scope_id, sps, pps, blocks, traces, streams,
+                     substream_bins)
+    with span("extract_release"):
+        del blocks, traces
+    return out
 
 
 def _cores():
@@ -292,23 +316,22 @@ def _drop_traces(blocks, traces):
 def _extract_and_pack(data, scope, substream_bins):
     """One file of device_compress_corpus, on its extraction worker:
     extract, pack the lanes into arrays of the file's own (pack_lanes:
-    native traces through the native packer, the GIL released) and let the
-    traces go here, so that a native extraction's buffer closes on this
-    thread as soon as the pack ends.  Returns (data, None) for a file
-    without traces, which the main thread compresses on the host; else
-    (None, (bins, (p1, bitw, lens), (sps, pps, blocks, placeholders,
-    spans), seconds spent packing))."""
+    native traces through the native packer, the GIL released; span pack)
+    and let the traces go here (span extract_release), so that a native
+    extraction's buffer closes on this thread as soon as the pack ends.
+    Returns (data, None) for a file without traces, which the main thread
+    compresses on the host; else (None, ((p1, bitw, lens), (sps, pps,
+    blocks, placeholders, spans)))."""
     sps, pps, blocks, traces, _ = extract_traces(data, scope=scope,
                                                  want_slots=False)
     if not traces:
         return data, None
-    t0 = time.perf_counter()
-    p1, bitw, lens, spans = pack_lanes(traces, substream_bins)
-    pack_s = time.perf_counter() - t0
-    bins = sum(len(t) for t in traces)
+    with span("pack"):
+        p1, bitw, lens, spans = pack_lanes(traces, substream_bins)
     blocks, stubs = _drop_traces(blocks, traces)
-    return None, (bins, (p1, bitw, lens), (sps, pps, blocks, stubs, spans),
-                  pack_s)
+    with span("extract_release"):
+        del traces
+    return None, ((p1, bitw, lens), (sps, pps, blocks, stubs, spans))
 
 
 def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
@@ -332,13 +355,19 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
     device_compress(f, scope=..., substream_bins=...) per file.
 
     inputs: list of paths or bytes.  Returns list of container bytes, in
-    input order.  stats (optional dict) receives {'dispatches': N,
-    'bins': M, 'pack_s': the workers' packing, summed over them, 'copy_s':
-    the main thread's copying of rows into the groups} (seconds, host
-    clock).  substream_bins=0 raises ValueError: the corpus path is
-    lane-only, as in the JAX package.  An exception in a file's extraction
-    or pack propagates as raised, after the extractions not yet started
-    are cancelled and the group being filled is given back."""
+    input order.  stats (optional dict) receives the call's spans and
+    counters (spans.KEYS; seconds on the host clock, summed over the
+    threads): 'dispatches' and 'bins'; the workers' extraction (extract_s,
+    its parts extract_native_s, extract_walk_s, extract_stitch_s,
+    extract_py_s, the native GOP jobs' gop_*, and the traces' release,
+    extract_release_s) and lane pack (pack_s); on the main thread, the
+    wait on each file's extraction (wait_s), the copy of rows into the
+    groups (copy_s), dispatch_s and upload_s, the read-back (collect_s),
+    envelope_s and serialise_s.  substream_bins=0 raises ValueError: the
+    corpus path is lane-only, as in the JAX package.  An exception in a
+    file's extraction or pack propagates as raised, after the extractions
+    not yet started are cancelled and the group being filled is given
+    back."""
     dev = resolve_device(device)
     if not substream_bins:
         raise ValueError(
@@ -346,6 +375,11 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
             "substream_bins > 0, or call device_compress per file for "
             "substream_bins=0"
         )
+    with call("device_compress_corpus", stats):
+        return _compress_corpus(inputs, scope, substream_bins, dev)
+
+
+def _compress_corpus(inputs, scope, substream_bins, dev):
     scope_id = SCOPE_SLICE if scope == "slice" else SCOPE_GOP
     sizes = [os.path.getsize(x) if isinstance(x, str) else len(x)
              for x in inputs]
@@ -354,13 +388,15 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
     todo = collections.deque(sorted(range(len(inputs)),
                                     key=lambda i: -sizes[i]))
 
+    this_call = current()
+
     def extract(i):
-        return _extract_and_pack(_read(inputs[i]), scope, substream_bins)
+        with bind(this_call, i):
+            return _extract_and_pack(_read(inputs[i]), scope, substream_bins)
 
     outs = [None] * len(inputs)
     waiting = collections.deque()  # copied files: (index, rows, meta)
     batcher = StreamingBatcher(dev)
-    n_bins, pack_s = 0, 0.0
 
     def serialise_ready():
         got = batcher.streams
@@ -389,7 +425,8 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
             idx, fut = ahead.popleft()
             submit()
             try:
-                data, packed = fut.result()
+                with span("wait", idx):
+                    data, packed = fut.result()
             finally:
                 # the future holds the packed rows, or the exception, whose
                 # traceback holds this frame
@@ -400,10 +437,8 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
                 outs[idx] = compress(data, scope=scope,
                                      substream_bins=substream_bins)
             else:
-                bins, rows, meta, secs = packed
+                rows, meta = packed
                 del packed
-                n_bins += bins
-                pack_s += secs
                 waiting.append((idx, batcher.add(*rows), meta))
                 del rows
             serialise_ready()
@@ -415,11 +450,6 @@ def device_compress_corpus(inputs, scope="gop", substream_bins=4096,
         raise
     finally:
         pool.shutdown(cancel_futures=True)
-    if stats is not None:
-        stats["dispatches"] = batcher.dispatches
-        stats["bins"] = n_bins
-        stats["pack_s"] = pack_s
-        stats["copy_s"] = batcher.copy_s
     return outs
 
 

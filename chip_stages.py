@@ -31,19 +31,19 @@ The parts, all of them by default, in this order:
              lane_encode_streams_idx), read-back, slicing
   corpus     device_compress_corpus on chip_smoke.py phase 15's corpus (the
              13 pinned files x ~158 copies) at B = 16384 and 4096, three
-             passes each, each pass's host time by stage (CORPUS_SPLIT, the
-             stages the tree has): the main thread's wait on the
-             extractions, packing into staging (add_traces, trees before
-             the pack moved to the workers) or copying the packed rows in
-             (add), upload, launch, read-back, the rest of collect,
-             envelopes, serialisation, the rest of the wall; the
-             extraction and the lane pack summed over the worker threads
-             beside them; the main thread's CPU time in the pack or copy
-             and in serialisation, and the process's CPU time over the
-             pass (all threads) and the cores it kept busy; the pass's
-             peak RSS (VmRSS sampled on a thread) and its peak device
-             memory (torch.cuda.max_memory_allocated above what was
-             allocated before it)
+             passes each, each pass's host time by stage as the program's
+             own spans and counters give it in its stats (those the tree
+             has; avrecode_tpu_torch/spans.py): on the main thread the wait
+             on the extractions, the copy of the packed rows in, upload,
+             launch, read-back, envelopes, serialisation and the rest of
+             the wall; on the worker threads, summed over them, the
+             extraction and its parts (the native walk, GOP jobs and
+             stitch, the Python around them, the traces' release) and the
+             lane pack; the process's CPU time over the pass (all threads)
+             and the cores it kept busy; the pass's peak RSS (VmRSS
+             sampled on a thread) and its peak device memory
+             (torch.cuda.max_memory_allocated above what was allocated
+             before it)
   window     the same corpus at B = 16384, at each extraction window of
              WINDOWS and each extraction's GOP threads of GOP_THREADS, then
              at each EXTRACT_BYTES of BYTES_SWEEP (trees that have it) at
@@ -72,7 +72,6 @@ The parts, all of them by default, in this order:
              pass, pack, upload, kernel, read-back, split, host assembly
 """
 
-import concurrent.futures
 import os
 import resource
 import subprocess
@@ -363,111 +362,38 @@ def phase15_corpus():
     return datas, BENCH_GROUPS * tlc.GROUP_ROWS // rows + 1
 
 
-# stages that run on the extraction workers, summed over them
-WORKER_STAGES = ("extraction (worker threads)", "lane pack (worker threads)")
-# main-thread stages whose thread CPU time is printed beside their time
-MAIN_CPU = ("pack into staging (add_traces)", "copy into staging (add)",
-            "serialisation")
-# (owner, attribute, stage) of a corpus pass's stages
-CORPUS_SPLIT = (
-    (pipeline, "pack_lanes", WORKER_STAGES[1]),
-    (tlc.LaneBatcher, "add_traces", "pack into staging (add_traces)"),
-    (tlc.LaneBatcher, "add", "copy into staging (add)"),
-    (tlc, "upload_group", "upload (copy_)"),
-    (tlc, "dispatch_group", "launch"),
-    (tlc, "read_group", "read-back"),
-    (tlc, "collect_groups", "the rest of collect"),
-    (tlc.GroupStreams, "envelope", "envelopes"),
-    (pipeline, "_serialize", "serialisation"),
-)
-
-
-class Split:
-    """Host time by stage: each wrapped call's time less the time of the
-    wrapped calls inside it (a stack a thread); a stage that runs on
-    several threads at once is summed over them.  `cpu` holds the same
-    for the calling thread's CPU time (time.thread_time: not the threads a
-    native call starts, nor the time the thread waits for a core or the
-    GIL)."""
-
-    def __init__(self):
-        self.spent = {}
-        self.cpu = {}
-        self.local = threading.local()
-        self.lock = threading.Lock()
-
-    def wrap(self, fn, name):
-        def run(*args, **kwargs):
-            stack = self.local.__dict__.setdefault("stack", [])
-            stack.append([0.0, 0.0])
-            t0, c0 = time.perf_counter(), time.thread_time()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                dt = time.perf_counter() - t0
-                dc = time.thread_time() - c0
-                inner, inner_cpu = stack.pop()
-                with self.lock:
-                    self.spent[name] = self.spent.get(name, 0.0) + dt - inner
-                    self.cpu[name] = self.cpu.get(name, 0.0) + dc - inner_cpu
-                if stack:
-                    stack[-1][0] += dt
-                    stack[-1][1] += dc
-        return run
-
-
-class TimedFuture:
-    """A future whose result() the Split times; it holds the future, and
-    not the other way round, so that a future let go (with the traces in
-    its result) is freed at once, as the pipeline's own are."""
-
-    def __init__(self, fut, split):
-        self.fut = fut
-        self.result = split.wrap(fut.result, "extraction wait")
-
-    def cancel(self):
-        return self.fut.cancel()
+# the program's stats (spans.KEYS) that are main-thread stages of a
+# corpus pass, the rest of the pass's wall being the time outside them
+MAIN_STAGES = ("wait_s", "copy_s", "dispatch_s", "collect_s", "envelope_s",
+               "serialise_s")
 
 
 def split_pass(corpus, B, dev, window=None, threads=None, budget=None):
-    """One device_compress_corpus pass with every stage of CORPUS_SPLIT
-    that the tree has wrapped in a Split, the extraction and the lane pack
-    on the worker threads (each summed over them) and the main thread's
-    wait for them too: (containers, stats, {stage: s}) with the wall time,
-    the rest (the wall less the main thread's stages), the pass's peak RSS
-    and its device peak (bytes above what was allocated before it).
-    window sets pipeline.EXTRACT_WINDOW, budget pipeline.EXTRACT_BYTES
-    (trees that have it), threads each extraction's GOP threads (0 = the
-    extractor's own count), for the pass."""
-    split = Split()
-    extract = pipeline.extract_traces
-    if threads is not None:
-        def extract(data, real=extract, **kw):
-            return real(data, **dict(kw, threads=threads))
-    saved = [(pipeline, "extract_traces", extract, WORKER_STAGES[0])]
-    saved += [(owner, attr, getattr(owner, attr), name)
-              for owner, attr, name in CORPUS_SPLIT if hasattr(owner, attr)]
-    originals = [(pipeline, "extract_traces", pipeline.extract_traces)] + [
-        (owner, attr, fn) for owner, attr, fn, _ in saved[1:]]
+    """One device_compress_corpus pass split by stage from the program's
+    own stats (its spans and counters; a tree before them gives what its
+    stats hold): (containers, stats, {stage: s}) with the stats' seconds
+    (the workers' summed over them), the launch (dispatch less upload),
+    the rest of the wall (the wall less the main thread's stages), the
+    wall, the process's CPU time and cores busy, the pass's peak RSS and
+    its device peak (bytes above what was allocated before it).  window
+    sets pipeline.EXTRACT_WINDOW, budget pipeline.EXTRACT_BYTES (trees that
+    have it), threads each extraction's GOP threads (0 = the extractor's
+    own count), for the pass."""
+    originals = [(pipeline, "extract_traces", pipeline.extract_traces)]
     if window is not None:
         originals.append((pipeline, "EXTRACT_WINDOW", pipeline.EXTRACT_WINDOW))
     if budget is not None:
         originals.append((pipeline, "EXTRACT_BYTES", pipeline.EXTRACT_BYTES))
-    pool = concurrent.futures.ThreadPoolExecutor
-
-    class TimedPool(pool):
-        def submit(self, fn, *args, **kwargs):
-            return TimedFuture(super().submit(fn, *args, **kwargs), split)
-
     stats = {}
     try:
-        for owner, attr, fn, name in saved:
-            setattr(owner, attr, split.wrap(fn, name))
+        if threads is not None:
+            def extract(data, real=pipeline.extract_traces, **kw):
+                return real(data, **dict(kw, threads=threads))
+            pipeline.extract_traces = extract
         if window is not None:
             pipeline.EXTRACT_WINDOW = window
         if budget is not None:
             pipeline.EXTRACT_BYTES = budget
-        concurrent.futures.ThreadPoolExecutor = TimedPool
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         allocated = torch.cuda.memory_allocated(dev)
@@ -481,16 +407,13 @@ def split_pass(corpus, B, dev, window=None, threads=None, budget=None):
             host_cpu = time.process_time() - c0
         device_peak = torch.cuda.max_memory_allocated(dev) - allocated
     finally:
-        concurrent.futures.ThreadPoolExecutor = pool
         for owner, attr, fn in originals:
             setattr(owner, attr, fn)
-    spent = dict(split.spent)
-    worker = {name: spent.pop(name, 0.0) for name in WORKER_STAGES}
-    spent["the rest"] = wall - sum(spent.values())
+    spent = {k: v for k, v in stats.items() if k.endswith("_s")}
+    if "dispatch_s" in spent:
+        spent["launch_s"] = spent["dispatch_s"] - spent["upload_s"]
+    spent["the rest"] = wall - sum(spent.get(k, 0.0) for k in MAIN_STAGES)
     spent["wall"] = wall
-    spent.update(worker)
-    spent.update({f"{name}, thread CPU": s for name, s in split.cpu.items()
-                  if name in MAIN_CPU})
     spent["host CPU, all threads"] = host_cpu
     spent["cores busy"] = host_cpu / wall
     spent["peak RSS GB"] = rss.peak / 1e9

@@ -203,3 +203,21 @@ def test_bill_ledger_matches_reference(scope):
         err.append(r.stderr)
     assert "TOTAL" in err[1]
     assert err[0] == err[1]
+
+
+def test_tsan_extraction_counters(run):
+    """The extraction counters (avtpu_xstats), written on the GOP threads
+    and read after the join, in order and without a report: after each
+    clip's threaded extraction a job a GOP, and in the corpus window one
+    reading a file, each on its file's thread."""
+    out, _ = run
+    lines = [ln.split() for ln in out.splitlines()
+             if ln.startswith("xstats ")]
+    codec = {ln[2]: ln[3:] for ln in lines if ln[1] == "codec"}
+    assert set(codec) == {os.path.join(DATA, c) for c in CLIPS}, out
+    for c in CLIPS:
+        fields = dict(f.split("=") for f in codec[os.path.join(DATA, c)])
+        assert int(fields["jobs"]) == native.gop_count(_read(c)), fields
+        assert int(fields["slices"]) >= int(fields["jobs"])
+    window = [ln for ln in lines if ln[1] == "window"]
+    assert len(window) == max(len(CLIPS), tpipe.EXTRACT_WINDOW + 2), out
