@@ -12,6 +12,11 @@
 //                           counters (avtpu_xstats), written on the GOP
 //                           threads and read on the calling thread after
 //                           the join, held to their order and printed
+//   - avtpu_xopen_lane      (the same extraction in the lane form: each
+//                           GOP thread's pass-A scratch, each GOP's codes
+//                           grown by mremap), every code read and held to
+//                           the u64 records' length and bin, bits 13-15
+//                           zero, its counters held to their order
 //   - avtpu_lane_pack       (up to 16 threads over the lane rows, two passes
 //                           sharing an atomic flag), at a B small enough for
 //                           several threads and at B = 4096, and again with
@@ -49,6 +54,9 @@ size_t avtpu_compress_mt(const uint8_t*, size_t, int, int, uint8_t**);
 size_t avtpu_decompress_mt(const uint8_t*, size_t, int, uint8_t**);
 void* avtpu_xopen(const uint8_t*, size_t, int, int, int, const uint8_t**,
                   size_t*, size_t*);
+void* avtpu_xopen_lane(const uint8_t*, size_t, int, const uint8_t**, size_t*,
+                       size_t*);
+void avtpu_xlane(void*, size_t, const uint16_t**, size_t*);
 void avtpu_xtrace(void*, size_t, const uint64_t**, size_t*, const uint8_t**,
                   const uint8_t**, size_t*);
 void avtpu_xclose(void*);
@@ -120,8 +128,8 @@ void check_xstats(void* h, const char* what, const char* clip) {
 }
 
 // threaded compress (gop scope) equal to serial; threaded decompress equal
-// to the input; threaded extraction with every trace buffer touched and
-// its counters read
+// to the input; threaded extraction, in both forms, with every trace
+// buffer touched and its counters read
 void threaded_codec(const std::vector<uint8_t>& in, const char* clip) {
   std::vector<uint8_t> mt = compress(in, kScopeGop, kThreads);
   if (mt.empty() || mt != compress(in, kScopeGop, 1))
@@ -147,9 +155,40 @@ void threaded_codec(const std::vector<uint8_t>& in, const char* clip) {
     for (size_t j = 0; j < n; j++) sum += recs[j];
     for (size_t j = 0; j < n_slots; j++) sum += limits[j] + cls[j];
   }
+
+  // the lane form: the same meta, one code a bin of each trace, its bin
+  // the record's; the codes summed for the test to hold to Python's
+  const uint8_t* lane_meta = nullptr;
+  size_t lane_meta_len = 0, n_lanes = 0;
+  void* lh = avtpu_xopen_lane(in.data(), in.size(), kThreads, &lane_meta,
+                              &lane_meta_len, &n_lanes);
+  if (!lh) fail("xopen_lane returned null", clip);
+  check_xstats(lh, "lane", clip);
+  if (n_lanes != n_traces || lane_meta_len != meta_len ||
+      memcmp(lane_meta, meta, meta_len) != 0)
+    fail("the lane form's meta or trace count differs", clip);
+  uint64_t lane_sum = 0, bins = 0;
+  for (size_t i = 0; i < n_lanes; i++) {
+    const uint16_t* codes = nullptr;
+    const uint64_t* recs = nullptr;
+    const uint8_t *limits = nullptr, *cls = nullptr;
+    size_t n = 0, n_recs = 0, n_slots = 0;
+    avtpu_xlane(lh, i, &codes, &n);
+    avtpu_xtrace(h, i, &recs, &n_recs, &limits, &cls, &n_slots);
+    if (n != n_recs) fail("a lane-form trace's length differs", clip);
+    for (size_t j = 0; j < n; j++) {
+      if ((codes[j] >> 13) || (codes[j] >> 12) != ((recs[j] >> 24) & 1))
+        fail("a code's high bits or bin", clip);
+      lane_sum += codes[j];
+    }
+    bins += n;
+  }
+  avtpu_xclose(lh);
   avtpu_xclose(h);
   printf("codec %s traces=%zu checksum=%016llx\n", clip, n_traces,
          (unsigned long long)sum);
+  printf("lane %s traces=%zu bins=%llu sum=%llu\n", clip, n_lanes,
+         (unsigned long long)bins, (unsigned long long)lane_sum);
 }
 
 struct Extracted {

@@ -212,6 +212,22 @@ def _bind(lib):
         ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
         ctypes.POINTER(ctypes.c_size_t),
     ]
+    lib.avtpu_xopen_lane.restype = ctypes.c_void_p
+    lib.avtpu_xopen_lane.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_size_t,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.POINTER(ctypes.c_size_t),
+        ctypes.POINTER(ctypes.c_size_t),
+    ]
+    lib.avtpu_xlane.restype = None
+    lib.avtpu_xlane.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint16)),
+        ctypes.POINTER(ctypes.c_size_t),
+    ]
     lib.avtpu_xclose.restype = None
     lib.avtpu_xclose.argtypes = [ctypes.c_void_p]
     lib.avtpu_xstats.restype = ctypes.c_size_t
@@ -244,6 +260,10 @@ def _bind(lib):
     lib.avtpu_lane_pack.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64]
         + [ctypes.c_void_p] * 4)
+    lib.avtpu_lane_pack_codes.restype = ctypes.c_int
+    lib.avtpu_lane_pack_codes.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 3)
     lib.avtpu_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     return lib
 
@@ -304,6 +324,11 @@ class NativeTrace:
     def __len__(self):
         return len(self.recs)
 
+    @property
+    def nbytes(self):
+        """The bytes of its records: 8 a bin."""
+        return self.recs.nbytes
+
     def recs32(self):
         """Zero-copy view as [n, 2] u32 (lo, hi) for x64-free device upload."""
         import numpy as np
@@ -347,6 +372,69 @@ class NativeTrace:
             self._p1s = (self.recs >> 48).astype(np.uint16)
         return self._p1s
 
+
+class LaneTrace:
+    """A GOP's bin trace in the lane form (extract_lanes): `codes`, one
+    uint16 a bin, bits 0-11 the squash-table index of the bin's p1
+    (SQUASH[index] == p1, the last such index) and bit 12 the bin, bits
+    13-15 zero, viewed zero-copy over the native buffer.  That is all the
+    lane coder reads; bits and p1s derive lazily.  The records' slot, pcab
+    and class stay on the extraction's threads, so recs, slots and pcabs
+    raise."""
+
+    __slots__ = ("codes", "_handle", "_bits", "_p1s")
+
+    def __init__(self, codes, handle=None):
+        self.codes = codes
+        self._handle = handle  # keeps the native buffer alive
+        self._bits = self._p1s = None
+
+    def __len__(self):
+        return len(self.codes)
+
+    @property
+    def nbytes(self):
+        """The bytes of its codes: 2 a bin."""
+        return self.codes.nbytes
+
+    def _absent(self, name):
+        raise AttributeError(
+            f"LaneTrace has no {name}: the lane form keeps each bin's bit and "
+            "p1 only (2 bytes a bin); extract with native.extract for the "
+            "u64 records")
+
+    recs = property(lambda self: self._absent("recs"))
+    slots = property(lambda self: self._absent("slots"))
+    pcabs = property(lambda self: self._absent("pcabs"))
+
+    @property
+    def bits(self):
+        import numpy as np
+
+        if self._bits is None:
+            self._bits = (self.codes >> 12).astype(np.uint8)
+        return self._bits
+
+    @property
+    def p1s(self):
+        if self._p1s is None:
+            self._p1s = _squash()[self.codes & 0xFFF]
+        return self._p1s
+
+
+def _squash():
+    """The squash table as a uint16 numpy array."""
+    global _SQUASH
+    if _SQUASH is None:
+        import numpy as np
+
+        from ..ops._mix_tables import SQUASH
+
+        _SQUASH = np.asarray(SQUASH, np.uint16)
+    return _SQUASH
+
+
+_SQUASH = None
 
 XSTATS = 12  # the counters avtpu_xstats writes
 
@@ -409,60 +497,94 @@ def extract(data, scope="slice", threads=1, want_slots=True):
     lib = _load()
     assert lib is not None
     scope_id = {"slice": 1, "gop": 2}[scope]
+    data = bytes(data)
+    return _extract_with(
+        lib, lambda *out: lib.avtpu_xopen(
+            data, len(data), scope_id, threads, 1 if want_slots else 0,
+            *out), _record_view)
+
+
+def extract_lanes(data, threads=0):
+    """native.extract in the gop scope, each GOP's trace in the lane form:
+    (sps_list, pps_list, blocks, traces) with LaneTraces, 2 bytes a bin,
+    where extract gives NativeTraces of 8 (want_slots=False); the
+    parameter sets, blocks and each trace's bits and p1s are extract's.
+    For callers that read only each bin's (bit, p1): the lane coder.  The
+    spans and counters are extract's."""
+    lib = _load()
+    assert lib is not None
+    data = bytes(data)
+    return _extract_with(
+        lib, lambda *out: lib.avtpu_xopen_lane(data, len(data), threads,
+                                               *out), _lane_view)
+
+
+def _extract_with(lib, xopen, view):
+    """Open an extraction (xopen(&meta, &meta_len, &n_traces), span
+    extract_native), then, in span extract_py, its counters, each trace as
+    view(lib, ptr, i, handle) makes it, and the meta blob decoded."""
     meta_p = ctypes.POINTER(ctypes.c_uint8)()
     meta_len = ctypes.c_size_t()
     n_traces = ctypes.c_size_t()
-    data = bytes(data)
     with span("extract_native") as native_span:
-        ptr = lib.avtpu_xopen(
-            data, len(data), scope_id, threads, 1 if want_slots else 0,
-            ctypes.byref(meta_p), ctypes.byref(meta_len),
-            ctypes.byref(n_traces),
-        )
+        ptr = xopen(ctypes.byref(meta_p), ctypes.byref(meta_len),
+                    ctypes.byref(n_traces))
     if not ptr:
         raise ValueError("native extract failed")
     handle = _XtractHandle(lib, ptr)
     with span("extract_py"):
         if current() is not None:
             _extraction_spans(lib, ptr, native_span.id)
-        return _views(lib, ptr, handle, meta_p, meta_len, n_traces)
+        traces = [view(lib, ptr, i, handle) for i in range(n_traces.value)]
+        return _decode_meta(meta_p, meta_len, traces)
 
 
-def _views(lib, ptr, handle, meta_p, meta_len, n_traces):
-    """extract's result from an open handle: the meta blob decoded, each
-    trace's records viewed in place."""
+def _record_view(lib, ptr, i, handle):
+    """Trace i of an avtpu_xopen handle: its records viewed in place."""
     import numpy as np
 
+    recs_p = ctypes.POINTER(ctypes.c_uint64)()
+    n_bins = ctypes.c_size_t()
+    lim_p = ctypes.POINTER(ctypes.c_uint8)()
+    cls_p = ctypes.POINTER(ctypes.c_uint8)()
+    n_slots = ctypes.c_size_t()
+    lib.avtpu_xtrace(
+        ptr, i, ctypes.byref(recs_p), ctypes.byref(n_bins),
+        ctypes.byref(lim_p), ctypes.byref(cls_p), ctypes.byref(n_slots),
+    )
+    recs = (
+        np.ctypeslib.as_array(recs_p, shape=(n_bins.value,))
+        if n_bins.value else np.zeros(0, np.uint64)
+    )
+    limits = (
+        np.ctypeslib.as_array(lim_p, shape=(n_slots.value,)).astype(np.int32)
+        if n_slots.value else np.zeros(0, np.int32)
+    )
+    cls = (
+        np.ctypeslib.as_array(cls_p, shape=(n_slots.value,)).astype(np.int32)
+        if n_slots.value else np.zeros(0, np.int32)
+    )
+    return NativeTrace(recs, limits, cls, handle)
+
+
+def _lane_view(lib, ptr, i, handle):
+    """Trace i of an avtpu_xopen_lane handle: its codes viewed in place."""
+    import numpy as np
+
+    codes_p = ctypes.POINTER(ctypes.c_uint16)()
+    n = ctypes.c_size_t()
+    lib.avtpu_xlane(ptr, i, ctypes.byref(codes_p), ctypes.byref(n))
+    codes = (np.ctypeslib.as_array(codes_p, shape=(n.value,))
+             if n.value else np.zeros(0, np.uint16))
+    return LaneTrace(codes, handle)
+
+
+def _decode_meta(meta_p, meta_len, traces):
+    """(sps, pps, blocks, traces) from the meta blob, the GOP or slice
+    blocks that carry a trace given theirs in order."""
     from ..utils.container import KIND_LITERAL, KIND_SLICE, Reader
 
-    blob = ctypes.string_at(meta_p, meta_len.value)  # meta is small
-
-    traces = []
-    for i in range(n_traces.value):
-        recs_p = ctypes.POINTER(ctypes.c_uint64)()
-        n_bins = ctypes.c_size_t()
-        lim_p = ctypes.POINTER(ctypes.c_uint8)()
-        cls_p = ctypes.POINTER(ctypes.c_uint8)()
-        n_slots = ctypes.c_size_t()
-        lib.avtpu_xtrace(
-            ptr, i, ctypes.byref(recs_p), ctypes.byref(n_bins),
-            ctypes.byref(lim_p), ctypes.byref(cls_p), ctypes.byref(n_slots),
-        )
-        recs = (
-            np.ctypeslib.as_array(recs_p, shape=(n_bins.value,))
-            if n_bins.value else np.zeros(0, np.uint64)
-        )
-        limits = (
-            np.ctypeslib.as_array(lim_p, shape=(n_slots.value,)).astype(np.int32)
-            if n_slots.value else np.zeros(0, np.int32)
-        )
-        cls = (
-            np.ctypeslib.as_array(cls_p, shape=(n_slots.value,)).astype(np.int32)
-            if n_slots.value else np.zeros(0, np.int32)
-        )
-        traces.append(NativeTrace(recs, limits, cls, handle))
-
-    r = Reader(blob)
+    r = Reader(ctypes.string_at(meta_p, meta_len.value))  # meta is small
     sps = [r.blob() for _ in range(r.varint())]
     pps = [r.blob() for _ in range(r.varint())]
     blocks = []
@@ -489,7 +611,8 @@ def _views(lib, ptr, handle, meta_p, meta_len, n_traces):
 
 
 def lane_pack(traces, B, Bp):
-    """One-pass lane packer (src/lanepack.cc) over NativeTraces' records:
+    """One-pass lane packer (src/lanepack.cc) over NativeTraces' records
+    or LaneTraces' codes (the index form always):
     each trace cut into ceil(T / B) lanes (at least one), rows of Bp >= B
     bins (a multiple of 32), every record read once.
 
@@ -504,11 +627,24 @@ def lane_pack(traces, B, Bp):
 
     L = lane_rows(traces, B)
     pk = np.empty((L, 3 * Bp // 2), np.uint8)
-    p1 = np.empty((L, Bp), np.uint16)  # written only where pk is not
+    # written only where pk is not (never for LaneTraces)
+    p1 = None if lane_form(traces) else np.empty((L, Bp), np.uint16)
     bitw = np.empty((L, Bp // 32), np.int32)
     lens = np.empty(L, np.int32)
     form, spans = lane_pack_into(traces, B, Bp, pk, p1, bitw, lens)
     return (pk if form else p1), bitw, lens, spans
+
+
+def lane_form(traces):
+    """Whether the traces are LaneTraces, which the packer reads from their
+    codes (and an empty list, which has no rows)."""
+    return all(isinstance(t, LaneTrace) for t in traces)
+
+
+def native_traces(traces):
+    """Whether the native packer takes the traces: NativeTraces, or
+    LaneTraces, all of one kind."""
+    return lane_form(traces) or all(hasattr(t, "recs32") for t in traces)
 
 
 def lane_rows(traces, B):
@@ -526,11 +662,17 @@ def lane_pack_into(traces, B, Bp, pk, p1, bitw, lens):
     a valid p1 leaves the squash image, the u16 form into p1 and returns
     (0, spans); bitw and lens either way.  The other form's array may hold
     anything after the call: pk holds the index rows written before the
-    first foreign p1 was found."""
+    first foreign p1 was found.
+
+    LaneTraces (all of the traces, or none: a LaneTrace has no recs) are
+    packed from their codes by avtpu_lane_pack_codes: their p1 always lie
+    in the squash image, so the call writes the index form and returns
+    (1, spans), and p1 is not read (it may be None)."""
     import numpy as np
 
     lib = _load()
     assert lib is not None
+    lanes = lane_form(traces)
     counts = np.array([len(t) for t in traces], np.int64)
     k = np.maximum(1, -(-counts // B))
     ends = np.cumsum(k)
@@ -541,19 +683,28 @@ def lane_pack_into(traces, B, Bp, pk, p1, bitw, lens):
             ("p1", p1, np.uint16, (L, Bp)),
             ("bitw", bitw, np.int32, (L, Bp // 32)),
             ("lens", lens, np.int32, (L,))):
+        if name == "p1" and lanes and p1 is None:
+            continue
         if (not isinstance(a, np.ndarray) or a.dtype != dtype
                 or a.shape != shape or not a.flags.c_contiguous
                 or not a.flags.writeable):
             raise ValueError(
                 f"lane_pack_into: {name} must be a writeable C-contiguous "
                 f"{np.dtype(dtype).name} array of shape {shape}")
-    recs = [np.ascontiguousarray(t.recs, np.uint64) for t in traces]
+    if lanes:
+        recs = [np.ascontiguousarray(t.codes, np.uint16) for t in traces]
+    else:
+        recs = [np.ascontiguousarray(t.recs, np.uint64) for t in traces]
     ptrs = (ctypes.c_void_p * max(len(recs), 1))(
         *[r.ctypes.data for r in recs])
-    form = lib.avtpu_lane_pack(
-        ctypes.cast(ptrs, ctypes.c_void_p), counts.ctypes.data,
-        lane0.ctypes.data, len(recs), B, Bp, L, pk.ctypes.data,
-        p1.ctypes.data, bitw.ctypes.data, lens.ctypes.data)
+    head = (ctypes.cast(ptrs, ctypes.c_void_p), counts.ctypes.data,
+            lane0.ctypes.data, len(recs), B, Bp, L, pk.ctypes.data)
+    if lanes:
+        form = lib.avtpu_lane_pack_codes(*head, bitw.ctypes.data,
+                                         lens.ctypes.data)
+    else:
+        form = lib.avtpu_lane_pack(*head, p1.ctypes.data, bitw.ctypes.data,
+                                   lens.ctypes.data)
     if form < 0:
         raise ValueError(f"lane_pack: bad shapes (B={B}, Bp={Bp})")
     return form, list(zip(lane0.tolist(), ends.tolist()))

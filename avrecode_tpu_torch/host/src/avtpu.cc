@@ -15,6 +15,7 @@
 #include <chrono>
 #include <cstdio>
 #include <cstdlib>
+#include <sys/mman.h>
 #include <sys/syscall.h>
 #include <time.h>
 #include <unistd.h>
@@ -822,9 +823,63 @@ static int64_t thread_cpu_ns() {
 
 static int64_t thread_id() { return (int64_t)syscall(SYS_gettid); }
 
+// A GOP's trace in the lane form: one uint16 code a bin (bits 0-11 the
+// squash index of its p1, bit 12 the bin, bits 13-15 zero), all the lane
+// coder reads.  The codes live in an anonymous mapping of their own,
+// reserved from the GOP's payload bytes and grown by mremap, which moves
+// the pages and copies nothing; freeing it unmaps them, so no freed trace
+// stays resident in a malloc arena.
+class LaneCodes {
+ public:
+  LaneCodes() = default;
+  LaneCodes(LaneCodes&& o) noexcept : p_(o.p_), n_(o.n_), cap_(o.cap_) {
+    o.p_ = nullptr;
+    o.n_ = o.cap_ = 0;
+  }
+  LaneCodes& operator=(LaneCodes&& o) noexcept {
+    std::swap(p_, o.p_);
+    std::swap(n_, o.n_);
+    std::swap(cap_, o.cap_);
+    return *this;
+  }
+  LaneCodes(const LaneCodes&) = delete;
+  ~LaneCodes() {
+    if (p_) munmap(p_, bytes(cap_));
+  }
+
+  // room for at least n codes
+  void reserve(size_t n) {
+    if (n <= cap_) return;
+    void* p = p_ ? mremap(p_, bytes(cap_), bytes(n), MREMAP_MAYMOVE)
+                 : mmap(nullptr, bytes(n), PROT_READ | PROT_WRITE,
+                        MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+    if (p == MAP_FAILED) throw std::bad_alloc();
+    p_ = (uint16_t*)p;
+    cap_ = bytes(n) / sizeof(uint16_t);
+  }
+  // n more codes at the end: where to write them
+  uint16_t* extend(size_t n) {
+    if (n_ + n > cap_) reserve(std::max(n_ + n, 2 * cap_));
+    uint16_t* at = p_ + n_;
+    n_ += n;
+    return at;
+  }
+  const uint16_t* data() const { return p_; }
+  size_t size() const { return n_; }
+
+ private:
+  static size_t bytes(size_t n) {  // n codes, in whole pages
+    const size_t page = (size_t)sysconf(_SC_PAGESIZE);
+    return (n * sizeof(uint16_t) + page - 1) / page * page;
+  }
+  uint16_t* p_ = nullptr;
+  size_t n_ = 0, cap_ = 0;
+};
+
 struct XtractResult {
   Bytes meta;
   std::vector<std::shared_ptr<RecodeModel>> traces;
+  std::vector<LaneCodes> lanes;  // the lane form's traces (traces empty)
   // lane-parallel consumers read only (bit, p1) from the records — fields
   // the slot remap never touches — so finalize_trace can be skipped
   bool want_slots = true;
@@ -1008,6 +1063,7 @@ struct XGopJob {
   std::vector<BlockRec> blocks;
   std::vector<uint8_t> ok;
   std::shared_ptr<RecodeModel> rec;  // GOP recorder (trace carrier)
+  LaneCodes lane;                    // the lane form's trace
   int first_ok = -1;
   // written on the job's thread only (see XStats)
   int64_t parse_ns = 0, model_ns = 0, cpu_ns = 0;
@@ -1019,15 +1075,26 @@ struct XGopJob {
 // buffer — pass B replays the verified slice's records through the model,
 // rewriting them in place with the exact p1.  Failed slices truncate the
 // buffer; no journal, no redo.
+// The lane form (`pass_a` given): pass A appends the slice's records to
+// `pass_a`, the GOP thread's buffer, and pass B writes each bin's lane
+// code to the end of job->lane; a failed slice leaves only pass_a to
+// clear.  The records never leave the thread.
 static void process_gop_x_impl(const uint8_t* data,
                                const std::vector<SliceRec>& sl, XGopJob* job,
-                               bool want_slots) {
+                               bool want_slots,
+                               std::vector<uint64_t>* pass_a) {
   auto recorder = std::make_shared<RecodeModel>(true);
   recorder->set_optimistic(true);
   std::unique_ptr<PicState> cur, prev;
   int slice_id = 0;
   job->blocks.resize(job->end - job->begin);
   job->ok.assign(job->end - job->begin, 0);
+  if (pass_a) {
+    size_t payload = 0;
+    for (size_t i = job->begin; i < job->end; i++)
+      payload += sl[i].rbsp.size() - sl[i].cabac_offset;
+    job->lane.reserve(payload * 20);  // ~18.5 bins/payload byte
+  }
   for (size_t i = job->begin; i < job->end; i++) {
     const SliceRec& rec = sl[i];
     size_t k = i - job->begin;
@@ -1057,9 +1124,18 @@ static void process_gop_x_impl(const uint8_t* data,
     int idc = rec.hdr.slice_type == SLICE_I || rec.hdr.slice_type == SLICE_SI
                   ? -1
                   : rec.hdr.cabac_init_idc;
-    recorder->reserve_trace(payload_size * 20);
-    size_t mark = recorder->trace_mark();
-    recorder->set_defer_trace(true);
+    size_t mark = 0;
+    if (pass_a) {
+      pass_a->clear();
+      // at least kScratchFloor records: see extract_open_gop_mt
+      if (pass_a->capacity() < payload_size * 20)
+        pass_a->reserve(std::max(payload_size * 20, 2 * pass_a->capacity()));
+      recorder->set_defer(pass_a);
+    } else {
+      recorder->reserve_trace(payload_size * 20);
+      mark = recorder->trace_mark();
+      recorder->set_defer_trace(true);
+    }
     int mb_count, drop;
     Bytes tail;
     try {
@@ -1081,16 +1157,21 @@ static void process_gop_x_impl(const uint8_t* data,
         if (!c.verify_tail(&drop, &tail)) throw Desync("re-encode mismatch");
       }
     } catch (const ParseError&) {
-      recorder->set_defer_trace(false);
-      recorder->truncate_trace(mark);
+      recorder->set_defer(nullptr);
+      if (!pass_a) recorder->truncate_trace(mark);
       job->parse_ns += steady_ns() - a0;
       continue;
     }
-    recorder->set_defer_trace(false);
+    recorder->set_defer(nullptr);
     // pass B: the model replays the slice's records, writing each bin's p1
+    // (the lane form: each bin's code)
     int64_t b0 = steady_ns();
     job->parse_ns += b0 - a0;
-    recorder->replay_trace_tail(mark);
+    if (pass_a)
+      recorder->replay_lane(pass_a->data(), pass_a->size(),
+                            job->lane.extend(pass_a->size()));
+    else
+      recorder->replay_trace_tail(mark);
     job->model_ns += steady_ns() - b0;
     if (advance) prev = std::move(cur);
     cur = std::make_unique<PicState>(std::move(scratch));
@@ -1107,7 +1188,7 @@ static void process_gop_x_impl(const uint8_t* data,
     job->ok[k] = 1;
     if (job->first_ok < 0) job->first_ok = (int)k;
   }
-  if (job->first_ok >= 0) {
+  if (job->first_ok >= 0 && !pass_a) {
     if (want_slots) recorder->finalize_trace();  // slot remap in the worker
     job->rec = recorder;
   }
@@ -1115,12 +1196,22 @@ static void process_gop_x_impl(const uint8_t* data,
 
 static void process_gop_x(const uint8_t* data,
                           const std::vector<SliceRec>& sl, XGopJob* job,
-                          bool want_slots) {
-  process_gop_x_impl(data, sl, job, want_slots);
+                          bool want_slots, std::vector<uint64_t>* pass_a) {
+  process_gop_x_impl(data, sl, job, want_slots, pass_a);
 }
 
+// The lane form's pass-A scratch holds at least this many records, 32 MiB
+// and a record: glibc maps an allocation of that size apart whatever its
+// dynamic mmap threshold has grown to (32 MiB at most), and unmaps it when
+// freed, so a worker's scratch never stays resident in an arena.  Only the
+// pages that its largest slice's records touch become resident.
+static const size_t kScratchFloor = (size_t(32) << 20) / 8 + 1;
+
+// `lane`: the lane form, one LaneCodes a GOP in res.lanes (see
+// process_gop_x_impl); else res.traces, each GOP's recorder.
 static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
-                                        int threads, bool want_slots) {
+                                        int threads, bool want_slots,
+                                        bool lane = false) {
   XtractResult res;
   res.want_slots = want_slots;
   XStats& st = res.stats;
@@ -1135,19 +1226,22 @@ static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
                  (sl[i].hdr.idr && sl[i].hdr.first_mb_in_slice == 0);
     if (start) {
       if (!jobs.empty()) jobs.back().end = i;
-      jobs.push_back({i, sl.size(), {}, {}, nullptr, -1});
+      jobs.push_back({i, sl.size(), {}, {}, nullptr, {}, -1});
     }
   }
   st.t_walked = steady_ns();
   std::atomic<size_t> next{0};
   auto worker = [&]() {
+    // the lane form's pass-A records: one slice at a time, this thread's
+    std::vector<uint64_t> scratch;
+    if (lane) scratch.reserve(kScratchFloor);
     for (;;) {
       size_t j = next.fetch_add(1);
       if (j >= jobs.size()) return;
       XGopJob& job = jobs[j];
       job.time = {thread_id(), steady_ns(), 0};
       int64_t cpu0 = thread_cpu_ns();
-      process_gop_x(data, sl, &job, want_slots);
+      process_gop_x(data, sl, &job, want_slots, lane ? &scratch : nullptr);
       job.cpu_ns = thread_cpu_ns() - cpu0;
       job.time.t1 = steady_ns();
     }
@@ -1207,7 +1301,10 @@ static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
       write_gaps(out, b.gaps);
       bool carries = (int)k == job.first_ok;
       out.u8(carries ? 1 : 0);
-      if (carries) res.traces.push_back(job.rec);
+      if (carries && lane)
+        res.lanes.push_back(std::move(job.lane));
+      else if (carries)
+        res.traces.push_back(job.rec);
       pos = rec.span_end;
     }
   }
@@ -1717,6 +1814,40 @@ void* avtpu_xopen(const uint8_t* data, size_t size, int scope, int threads,
     *n_traces = 0;
     return nullptr;
   }
+}
+
+// The lane form of the gop-scope extraction: the same meta as
+// avtpu_xopen's, and each GOP's trace as one uint16 code a bin (bits 0-11
+// the squash index of its p1, bit 12 the bin, bits 13-15 zero; read by
+// avtpu_xlane) in place of the u64 records.  The handle takes
+// avtpu_xstats and avtpu_xclose, not avtpu_xtrace.  threads as
+// avtpu_xopen's.  Returns nullptr on error.
+void* avtpu_xopen_lane(const uint8_t* data, size_t size, int threads,
+                       const uint8_t** meta, size_t* meta_len,
+                       size_t* n_traces) {
+  try {
+    int nt = threads > 0 ? threads
+                         : std::min(16u, std::thread::hardware_concurrency());
+    auto* h = new avtpu::XtractResult(avtpu::extract_open_gop_mt(
+        data, size, nt, /*want_slots=*/false, /*lane=*/true));
+    *meta = h->meta.data();
+    *meta_len = h->meta.size();
+    *n_traces = h->lanes.size();
+    return h;
+  } catch (...) {
+    *meta = nullptr;
+    *meta_len = 0;
+    *n_traces = 0;
+    return nullptr;
+  }
+}
+
+// trace i of a lane-form handle: its codes and their count
+void avtpu_xlane(void* handle, size_t i, const uint16_t** codes,
+                 size_t* n_bins) {
+  const avtpu::LaneCodes& t = ((avtpu::XtractResult*)handle)->lanes[i];
+  *codes = t.data();
+  *n_bins = t.size();
 }
 
 void avtpu_xtrace(void* handle, size_t i, const uint64_t** recs,

@@ -13,7 +13,10 @@
 // The index form is written when every valid bin's p1 lies in the squash
 // table's image (the recorder requantizes every p1 onto it, model.h); p1 = 0
 // counts as outside it in a valid bin (only padding may hold 0, as index 0).
-// Otherwise the same call writes the u16 form.  Lanes are cut into runs of
+// Otherwise the same call writes the u16 form.  A second entry,
+// avtpu_lane_pack_codes, reads the lane form's traces (2 bytes a bin: the
+// squash index and the bin, host/src/avtpu.cc::LaneCodes) and writes the
+// same index-form rows, copying each index.  Lanes are cut into runs of
 // rows, one run a host thread.
 
 #include <algorithm>
@@ -46,28 +49,47 @@ const SquashRev& squash_rev() {
   return rev;
 }
 
+// Where a row's bins come from: the u64 trace records (lo32 = slot | bit <<
+// 24, hi32 = pcab | p1 << 16), their p1 mapped to an index by the reverse
+// map, or the lane form's uint16 codes (bits 0-11 the squash index, bit 12
+// the bin, bits 13-15 zero), whose index is copied
+struct FromRecs {
+  using Rec = uint64_t;
+  const uint16_t* rev;
+  uint32_t idx(uint64_t r) const { return rev[r >> 48]; }
+  static uint32_t bit(uint64_t r) { return (uint32_t)(r >> 24) & 1; }
+  static uint16_t p1(uint64_t r) { return (uint16_t)(r >> 48); }
+};
+struct FromCodes {
+  using Rec = uint16_t;
+  uint32_t idx(uint16_t c) const { return c & 0xFFFu; }
+  static uint32_t bit(uint16_t c) { return (uint32_t)c >> 12; }
+};
+
+template <class Rec>
 struct Lane {
-  const uint64_t* rec;  // the lane's first record
-  int n;                // its bins
+  const Rec* rec;  // the lane's first record
+  int n;           // its bins
 };
 
 // one lane row in the index form, a 32-bin block (48 bytes of indices, a
 // bit word) at a time; false where a valid p1 is foreign
-bool pack_row_idx(const Lane& ln, int Bp, const uint16_t* rev, uint8_t* pk,
-                  int32_t* bitw) {
+template <class Src>
+bool pack_row_idx(const Lane<typename Src::Rec>& ln, int Bp, const Src& src,
+                  uint8_t* pk, int32_t* bitw) {
   uint32_t bad = 0;
   for (int b0 = 0; b0 < Bp; b0 += 32) {
     const int cnt = std::max(0, std::min(32, ln.n - b0));
     if (cnt == 32) {  // a full block: 8 bins into 12 bytes, two stores
-      const uint64_t* r = ln.rec + b0;
+      const typename Src::Rec* r = ln.rec + b0;
       uint8_t* q = pk + 3 * (b0 >> 1);
       uint32_t word = 0;
       for (int g = 0; g < 4; ++g, r += 8, q += 12) {
         uint64_t i[8];
         for (int k = 0; k < 8; ++k) {
-          i[k] = rev[r[k] >> 48];
+          i[k] = src.idx(r[k]);
           bad |= (uint32_t)i[k];
-          word |= (uint32_t)((r[k] >> 24) & 1) << (g * 8 + k);
+          word |= src.bit(r[k]) << (g * 8 + k);
         }
         const uint64_t lo = i[0] | i[1] << 12 | i[2] << 24 | i[3] << 36 |
                             i[4] << 48 | i[5] << 60;
@@ -80,9 +102,9 @@ bool pack_row_idx(const Lane& ln, int Bp, const uint16_t* rev, uint8_t* pk,
     }
     uint32_t idx[32], word = 0;
     for (int k = 0; k < cnt; ++k) {
-      const uint64_t r = ln.rec[b0 + k];
-      word |= (uint32_t)((r >> 24) & 1) << k;
-      idx[k] = rev[r >> 48];
+      const typename Src::Rec r = ln.rec[b0 + k];
+      word |= src.bit(r) << k;
+      idx[k] = src.idx(r);
       bad |= idx[k];
     }
     for (int k = cnt; k < 32; ++k) idx[k] = 0;
@@ -97,15 +119,16 @@ bool pack_row_idx(const Lane& ln, int Bp, const uint16_t* rev, uint8_t* pk,
   return (bad & 0xF000u) == 0;
 }
 
-// one lane row in the u16 form, a 32-bin block at a time
-void pack_row_u16(const Lane& ln, int Bp, uint16_t* p1, int32_t* bitw) {
+// one lane row of records in the u16 form, a 32-bin block at a time
+void pack_row_u16(const Lane<uint64_t>& ln, int Bp, uint16_t* p1,
+                  int32_t* bitw) {
   for (int b0 = 0; b0 < Bp; b0 += 32) {
     const int cnt = std::max(0, std::min(32, ln.n - b0));
     uint32_t word = 0;
     for (int k = 0; k < cnt; ++k) {
       const uint64_t r = ln.rec[b0 + k];
-      word |= (uint32_t)((r >> 24) & 1) << k;
-      p1[b0 + k] = (uint16_t)(r >> 48);
+      word |= FromRecs::bit(r) << k;
+      p1[b0 + k] = FromRecs::p1(r);
     }
     for (int k = cnt; k < 32; ++k) p1[b0 + k] = 0;
     bitw[b0 >> 5] = (int32_t)word;
@@ -132,6 +155,27 @@ void over_rows(int64_t n, Fn fn) {
   for (auto& t : pool) t.join();
 }
 
+// The lane rows of n_traces traces (see avtpu_lane_pack), into `lanes`
+// and lens; false on bad shapes
+template <class Rec>
+bool cut_lanes(const Rec* const* recs, const int64_t* n_recs,
+               const int64_t* lane0, int n_traces, int B, int Bp, int64_t L,
+               std::vector<Lane<Rec>>* lanes, int32_t* lens) {
+  if (B <= 0 || Bp < B || Bp % 32 || L < 0) return false;
+  lanes->assign((size_t)L, Lane<Rec>{nullptr, 0});
+  for (int t = 0; t < n_traces; ++t) {
+    const int64_t n = n_recs[t];
+    const int64_t k = std::max<int64_t>(1, (n + B - 1) / B);
+    if (lane0[t] < 0 || lane0[t] + k > L) return false;
+    for (int64_t j = 0; j < k; ++j)
+      (*lanes)[(size_t)(lane0[t] + j)] = Lane<Rec>{
+          recs[t] + j * B,
+          (int)std::max<int64_t>(0, std::min<int64_t>(B, n - j * B))};
+  }
+  for (int64_t r = 0; r < L; ++r) lens[r] = (*lanes)[(size_t)r].n;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -146,26 +190,16 @@ int avtpu_lane_pack(const uint64_t* const* recs, const int64_t* n_recs,
                     const int64_t* lane0, int n_traces, int B, int Bp,
                     int64_t L, uint8_t* pk, uint16_t* p1, int32_t* bitw,
                     int32_t* lens) {
-  if (B <= 0 || Bp < B || Bp % 32 || L < 0) return -1;
-  std::vector<Lane> lanes((size_t)L, Lane{nullptr, 0});
-  for (int t = 0; t < n_traces; ++t) {
-    const int64_t n = n_recs[t];
-    const int64_t k = std::max<int64_t>(1, (n + B - 1) / B);
-    if (lane0[t] < 0 || lane0[t] + k > L) return -1;
-    for (int64_t j = 0; j < k; ++j)
-      lanes[(size_t)(lane0[t] + j)] =
-          Lane{recs[t] + j * B, (int)std::max<int64_t>(
-                                    0, std::min<int64_t>(B, n - j * B))};
-  }
-  for (int64_t r = 0; r < L; ++r) lens[r] = lanes[(size_t)r].n;
-
-  const uint16_t* rev = squash_rev().idx;
+  std::vector<Lane<uint64_t>> lanes;
+  if (!cut_lanes(recs, n_recs, lane0, n_traces, B, Bp, L, &lanes, lens))
+    return -1;
+  const FromRecs src{squash_rev().idx};
   const size_t wp = 3 * (size_t)Bp / 2, ww = (size_t)Bp / 32;
   std::atomic<bool> foreign{false};
   over_rows(L, [&](int64_t lo, int64_t hi) {
     for (int64_t r = lo; r < hi && !foreign.load(std::memory_order_relaxed);
          ++r)
-      if (!pack_row_idx(lanes[(size_t)r], Bp, rev, pk + r * wp,
+      if (!pack_row_idx(lanes[(size_t)r], Bp, src, pk + r * wp,
                         bitw + r * ww))
         foreign.store(true, std::memory_order_relaxed);
   });
@@ -175,6 +209,27 @@ int avtpu_lane_pack(const uint64_t* const* recs, const int64_t* n_recs,
       pack_row_u16(lanes[(size_t)r], Bp, p1 + r * (size_t)Bp, bitw + r * ww);
   });
   return 0;
+}
+
+// avtpu_lane_pack over lane-form traces (codes[t] / n_codes[t], the uint16
+// codes of avtpu_xlane): a code's index is its p1's squash index, always in
+// the table, so the rows are the index form, each index copied; returns 1,
+// or -1 on bad shapes.  The rows equal avtpu_lane_pack's on the same
+// traces' u64 records.
+int avtpu_lane_pack_codes(const uint16_t* const* codes,
+                          const int64_t* n_codes, const int64_t* lane0,
+                          int n_traces, int B, int Bp, int64_t L,
+                          uint8_t* pk, int32_t* bitw, int32_t* lens) {
+  std::vector<Lane<uint16_t>> lanes;
+  if (!cut_lanes(codes, n_codes, lane0, n_traces, B, Bp, L, &lanes, lens))
+    return -1;
+  const size_t wp = 3 * (size_t)Bp / 2, ww = (size_t)Bp / 32;
+  over_rows(L, [&](int64_t lo, int64_t hi) {
+    for (int64_t r = lo; r < hi; ++r)
+      pack_row_idx(lanes[(size_t)r], Bp, FromCodes{}, pk + r * wp,
+                   bitw + r * ww);
+  });
+  return 1;
 }
 
 // the host threads avtpu_lane_pack runs each pass on for L rows

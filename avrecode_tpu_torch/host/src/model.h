@@ -218,6 +218,20 @@ struct RequantTab {
 };
 inline const RequantTab kRequant12{};
 
+// Lane code of a requantized p1: kLaneIdx.t[q] is the squash index of
+// kRequant12.t[q], the LAST i with kSquash[i] == kRequant12.t[q] (the one
+// the lane packer's reverse map, host/src/lanepack.cc, gives the same p1),
+// so pass B of the lane form writes it with one load off the model's chain.
+struct LaneIdxTab {
+  uint16_t t[4096];
+  LaneIdxTab() {
+    std::vector<uint16_t> rev(1 << 16);
+    for (int i = 0; i < 4096; i++) rev[kSquash[i]] = (uint16_t)i;
+    for (int q = 0; q < 4096; q++) t[q] = rev[kRequant12.t[q]];
+  }
+};
+inline const LaneIdxTab kLaneIdx{};
+
 // Fused APM-bucket table: kSquashU[dot + 2048] ==
 // kStretch12[kSquash[dot + 2048] >> 4] + 2048 exactly — the squash and
 // its stretch re-bucketing both depend only on `dot`, so the fused load
@@ -339,6 +353,7 @@ class RecodeModel {
     EstPool::Cell* cell;  // resolved once; commit()/adapt() reuse it
     uint32_t idx;
     uint32_t p1;    // final coded probability (post-APM, squash-grid)
+    uint32_t q;     // its requant row: p1 == kRequant12.t[q]
     uint32_t pmix;  // mixer output (pre-APM): the mixer learns on this
     int pcab;
     uint32_t cls;
@@ -415,18 +430,8 @@ class RecodeModel {
     replay_records(trace_->recs.data() + mark, trace_->recs.size() - mark);
   }
   void replay_records(uint64_t* r, size_t n) {
-    static_assert(K_NCLS <= 128, "cls must fit the 7-bit record field");
-    constexpr size_t kPF = 24;  // cell prefetch distance (bins)
-    for (size_t i = 0; i < n; i++) {
-      if (i + kPF < n)
-        __builtin_prefetch(&pool_->cells[(uint32_t)r[i + kPF] & 0xFFFFFF]);
-      uint64_t v = r[i];
-      uint32_t idx = (uint32_t)v & 0xFFFFFF;
-      int bit = (int)(v >> 24) & 1;
-      uint32_t cls = ((uint32_t)v >> 25) & 0x7F;
-      int pcab = (int)((v >> 32) & 0xFFFF);
-      uint64_t key = ((uint64_t)cls << 40) | idx;
-      Prep pp = prepare(key, pcab);
+    replay_each(r, n, [&](size_t i, uint32_t idx, int bit, int pcab,
+                          uint32_t cls, const Prep& pp) {
       if (trace_) {
         // rewrite in place into the finalized trace record (the pass-A
         // buffer IS the trace buffer; finalize_trace slot-remaps later)
@@ -439,9 +444,16 @@ class RecodeModel {
 #endif
         if (bill) bill[cls] += (enc_->out_size() - n0) * 8;
       }
-      update_mix(pp, bit);
-      adapt(*pp.cell, cls, bit);
-    }
+    });
+  }
+  // Pass B of the lane form: the same model steps over pass A's records,
+  // each bin written to out[i] as its lane code, the squash index of its
+  // p1 (bits 0-11) and the bin (bit 12); the records are left as they are
+  void replay_lane(const uint64_t* r, size_t n, uint16_t* out) {
+    replay_each(r, n, [&](size_t i, uint32_t, int bit, int, uint32_t,
+                          const Prep& pp) {
+      out[i] = (uint16_t)(kLaneIdx.t[pp.q] | (uint32_t)bit << 12);
+    });
   }
 
   // optional per-class recode-bit ledger (the "Avrecode Bill",
@@ -604,6 +616,28 @@ class RecodeModel {
   }
 
  private:
+  // pass B's loop over pass A's records: emit(i, idx, bit, pcab, cls, pp)
+  // sees each bin's prepared probability before the model adapts to it
+  template <class Emit>
+  void replay_each(const uint64_t* r, size_t n, Emit emit) {
+    static_assert(K_NCLS <= 128, "cls must fit the 7-bit record field");
+    constexpr size_t kPF = 24;  // cell prefetch distance (bins)
+    for (size_t i = 0; i < n; i++) {
+      if (i + kPF < n)
+        __builtin_prefetch(&pool_->cells[(uint32_t)r[i + kPF] & 0xFFFFFF]);
+      uint64_t v = r[i];
+      uint32_t idx = (uint32_t)v & 0xFFFFFF;
+      int bit = (int)(v >> 24) & 1;
+      uint32_t cls = ((uint32_t)v >> 25) & 0x7F;
+      int pcab = (int)((v >> 32) & 0xFFFF);
+      uint64_t key = ((uint64_t)cls << 40) | idx;
+      Prep pp = prepare(key, pcab);
+      emit(i, idx, bit, pcab, cls, pp);
+      update_mix(pp, bit);
+      adapt(*pp.cell, cls, bit);
+    }
+  }
+
   static int bits_for(int v) {
     int n = 0;
     while (v >> n) n++;
@@ -680,7 +714,7 @@ class RecodeModel {
 #ifdef AVT_AB_NOMIX  // ablation build (timing experiments only)
     pp->x[0] = pp->x[1] = pp->x[3] = pp->x[4] = pp->x[5] = 0;
     pp->x[2] = 77; pp->x[6] = pp->x[7] = 0;
-    pp->pmix = 0x8000; pp->aj = 0; pp->afrac = 0;
+    pp->pmix = 0x8000; pp->aj = 0; pp->afrac = 0; pp->q = 0x800;
     return 0x8000;
 #endif
     // the APM row base depends only on (cls, history) — both known here —
@@ -733,7 +767,8 @@ class RecodeModel {
     int32_t pa = (a[0] * (128 - frac) + a[1] * frac) >> 7;
     int32_t pb = (p16 + pa) >> 1;
     pb = pb < 1 ? 1 : pb > 65535 ? 65535 : pb;
-    return kRequant12.t[pb >> 4];
+    pp->q = (uint32_t)pb >> 4;
+    return kRequant12.t[pp->q];
   }
   void update_mix(const Prep& pp, int bit) {
 #ifdef AVT_AB_NOUPD

@@ -1066,20 +1066,24 @@ class LaneBatcher:
         the lane range of traces[i] within the file.  Native traces that
         fit in the group's free rows are packed straight into them.  Span
         pack, and copy where rows packed apart are copied in."""
-        if not all(hasattr(t, "recs32") for t in traces):
+        if not native.native_traces(traces):
             with span("pack"):
                 p1, bitw, lens, spans = pack_lanes(traces, B)
             return self.add(p1, bitw, lens), spans
         Bp = -(-max(B, 1) // CHUNK) * CHUNK
         L = native.lane_rows(traces, B)
-        g = self._current(self.index, Bp)
+        # LaneTraces pack to the index form always: a group of the other
+        # form dispatches first, as when rows of that form are copied in
+        lanes = native.lane_form(traces)
+        g = self._current(lanes or self.index, Bp)
         r0 = self.acc
         if L > self.big - r0:
             with span("pack"):
                 p1, bitw, lens, spans = native.lane_pack(traces, B, Bp)
             return self.add(p1, bitw, lens), spans
         # the other form's pass writes a scratch array of its own
-        other = (np.empty((L, Bp), np.uint16) if g.index
+        other = (None if lanes
+                 else np.empty((L, Bp), np.uint16) if g.index
                  else np.empty((L, 3 * Bp // 2), np.uint8))
         mine = g.np[0][r0:r0 + L]
         bitw, lens = g.np[1][r0:r0 + L], g.np[2][r0:r0 + L]
@@ -1252,11 +1256,11 @@ def pack_lanes(traces, B):
     lies in the squash table's image and in the u16 form otherwise, the
     rule of the JAX package's lane_dispatch_compact.  Native traces go
     through the one-pass native packer (host/native.lane_pack; equal to
-    split_lanes_recs and pack_p1_idx, its plain version), Python-extracted
-    ones through split_lanes + pack_compact (no lane padding) and
-    pack_p1_idx."""
+    split_lanes_recs and pack_p1_idx, its plain version; LaneTraces from
+    their codes, to the same rows), Python-extracted ones through
+    split_lanes + pack_compact (no lane padding) and pack_p1_idx."""
     Bp = -(-max(B, 1) // CHUNK) * CHUNK
-    if all(hasattr(t, "recs32") for t in traces):
+    if native.native_traces(traces):
         return native.lane_pack(traces, B, Bp)
     bitp1, lens, spans = split_lanes(traces, B)
     p1u16, bitw, lens = pack_compact(bitp1, lens, pad_lanes=1)

@@ -89,19 +89,34 @@ def extract_traces(data, use_native=None, scope="slice", threads=0,
     parser when it is not, when it rejects the input (unless
     use_native=True), or when use_native=False.  stats["native"] records
     which one ran.  threads: 0=auto (parallel GOP jobs, gop scope),
-    1=serial.  In a call of an entry this is span extract, and the traces'
-    bins are counted (stats "bins")."""
+    1=serial.
+
+    want_slots=False says the caller reads only each bin's (bit, p1), as
+    the lane coder does: the native extractor then gives the gop scope's
+    traces in the lane form (native.extract_lanes: LaneTraces, 2 bytes a
+    bin) and the slice scope's NativeTraces without the slot remap (8
+    bytes a bin, as want_slots=True gives them).
+
+    In a call of an entry this is span extract, and the traces' bins
+    (stats "bins") and the bytes of their per-bin records (stats
+    "trace_bytes"; none for the Python parser's) are counted."""
     with span("extract"):
         out = _extract(data, use_native, scope, threads, want_slots)
     count("bins", sum(len(t) for t in out[3]))
+    count("trace_bytes", sum(getattr(t, "nbytes", 0) for t in out[3]))
     return out
 
 
 def _extract(data, use_native, scope, threads, want_slots):
     if use_native is not False and native.available():
         try:
-            sps, pps, blocks, traces = native.extract(
-                bytes(data), scope, threads=threads, want_slots=want_slots)
+            if scope == "gop" and not want_slots:
+                sps, pps, blocks, traces = native.extract_lanes(
+                    bytes(data), threads=threads)
+            else:
+                sps, pps, blocks, traces = native.extract(
+                    bytes(data), scope, threads=threads,
+                    want_slots=want_slots)
             return sps, pps, blocks, traces, {"native": True}
         except ValueError:
             if use_native:
@@ -243,8 +258,9 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
 
 
 def _device_compress(data, mesh, scope, substream_bins, dev):
-    # the lane coder reads only (bit, p1): skip the slot remap pass, which
-    # only the est path (substream_bins=0) needs
+    # the lane coder reads only (bit, p1): the lane form in the gop scope,
+    # no slot remap in the slice scope; only the est path (substream_bins=0)
+    # reads the slots
     sps, pps, blocks, traces, _ = extract_traces(
         data, scope=scope, want_slots=not substream_bins)
     if substream_bins == "auto":
@@ -286,8 +302,10 @@ EXTRACT_WINDOW = max(2, _cores())
 # The input bytes of the files submitted and not yet taken by the main
 # thread, at most (a file is admitted alone whatever its size).  A file's
 # bins are not known before it is extracted, its bytes are: ~8-16 bins a
-# byte, each an 8-byte record while the file extracts, so the files in
-# flight hold ~70-130 times this in records.  On a directory of long HD
+# byte, each a 2-byte code in the lane form (gop scope; an 8-byte record
+# in the slice scope) while the file extracts and packs, so the files in
+# flight hold ~16-32 times this in codes (the 8-byte records that this
+# bound was measured with held ~70-130 times it).  On a directory of long HD
 # clips (20-33 MB each) 64 MiB keeps two or three extracting, as fast as
 # no bound and with a third less peak RSS; a budget under two such files
 # runs them one at a time, ~22% slower.  It holds back none of many small
@@ -322,6 +340,7 @@ def _extract_and_pack(data, scope, substream_bins):
     Returns (data, None) for a file without traces, which the main thread
     compresses on the host; else (None, ((p1, bitw, lens), (sps, pps,
     blocks, placeholders, spans)))."""
+    # the lane form in the gop scope (see extract_traces)
     sps, pps, blocks, traces, _ = extract_traces(data, scope=scope,
                                                  want_slots=False)
     if not traces:

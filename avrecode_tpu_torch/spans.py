@@ -46,14 +46,16 @@ __all__ = ["KEYS", "Recording", "Span", "bind", "call", "closed", "count",
 
 # what every recorded stats dict holds, from the call's start: the layers'
 # span totals (seconds), the native extractor's counts and seconds (see
-# host/native.py::extract), and the device stage's counts
+# host/native.py::extract), the traces' bins and the bytes of their
+# per-bin records (parallel/pipeline.py::extract_traces), and the device
+# stage's counts
 KEYS = (
     "extract_s", "extract_native_s", "extract_walk_s", "extract_stitch_s",
     "extract_py_s", "extract_release_s",
     "gop_jobs", "gop_slices", "gop_slices_failed", "gop_parse_s",
     "gop_model_s", "gop_job_s", "gop_cpu_s", "gop_pool_s",
     "wait_s", "pack_s", "copy_s", "dispatch_s", "upload_s", "collect_s",
-    "envelope_s", "serialise_s", "dispatches", "bins",
+    "envelope_s", "serialise_s", "dispatches", "bins", "trace_bytes",
 )
 
 _clock = time.perf_counter_ns

@@ -1,7 +1,8 @@
 """ThreadSanitizer run over the threaded paths of the port's native host
 library (avrecode_tpu_torch/host/drivers/tsan_driver.cc, built by
 host/Makefile's tsan_driver target): GOP-parallel compress and decompress,
-threaded trace extraction, the threaded lane packer (host/src/lanepack.cc)
+threaded trace extraction in both of its forms (u64 records and the lane
+form's codes), the threaded lane packer (host/src/lanepack.cc)
 in both of its passes, and the window of files that
 parallel/pipeline.py::device_compress_corpus runs (EXTRACT_WINDOW at once,
 each extracted, packed and its handle closed on its own thread while the
@@ -221,3 +222,30 @@ def test_tsan_extraction_counters(run):
         assert int(fields["slices"]) >= int(fields["jobs"])
     window = [ln for ln in lines if ln[1] == "window"]
     assert len(window) == max(len(CLIPS), tpipe.EXTRACT_WINDOW + 2), out
+
+
+def test_tsan_lane_extraction(run):
+    """The lane form's threaded extraction (avtpu_xopen_lane: a pass-A
+    scratch a GOP thread, each GOP's codes in a mapping grown by mremap):
+    no report, its counters in order with a job a GOP, the same meta and
+    traces as the u64 records, every code read (bits 13-15 zero, its bin
+    the record's), and the codes' count and sum those of
+    native.extract_lanes."""
+    out, _ = run
+    lines = [ln.split() for ln in out.splitlines()]
+    xstats = {ln[2]: dict(f.split("=") for f in ln[3:]) for ln in lines
+              if ln[:2] == ["xstats", "lane"]}
+    lane = {ln[1]: dict(f.split("=") for f in ln[2:]) for ln in lines
+            if ln[0] == "lane"}
+    assert set(xstats) == set(lane) == {os.path.join(DATA, c) for c in CLIPS}
+    for c in CLIPS:
+        data = _read(c)
+        fields = xstats[os.path.join(DATA, c)]
+        assert int(fields["jobs"]) == native.gop_count(data), fields
+        traces = native.extract_lanes(data)[3]
+        assert lane[os.path.join(DATA, c)] == {
+            "traces": str(len(traces)),
+            "bins": str(sum(len(t) for t in traces)),
+            "sum": str(sum(int(t.codes.sum(dtype=np.uint64))
+                           for t in traces))}
+
