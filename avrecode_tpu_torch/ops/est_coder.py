@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, spans
 from ._mix_tables import STRETCH12
 from .estimator import (APM_CELLS, APM_HIST, HALVE_FAST, N_CLS, est_tables,
                         finalize_streams, model_probs, range_encode)
@@ -239,7 +239,13 @@ def encode_traces_est(traces, device=None):
     Traces are sorted by length and cut into groups of at most GROUP_BINS
     padded bins, each padded to its own longest trace and slot table.
     Every group is launched before any is read back; the read-back is cut
-    to the group's longest token segment."""
+    to the group's longest token segment.
+
+    In a call of an entry each group's pack_rows is span est_pack, its
+    upload est_upload and est_encode (with its range check's read-back)
+    est_launch (est_collect adds est_collect and est_finalize); the groups
+    (stats "est_launches"), traces ("est_traces"), padded bins S x T
+    ("est_padded_bins") and stream bytes out ("est_stored") are counted."""
     dev = resolve_device(device)
     order = sorted(range(len(traces)), key=lambda i: len(traces[i]))
     groups, grp = [], []
@@ -255,18 +261,32 @@ def encode_traces_est(traces, device=None):
         ts = [traces[i] for i in grp]
         T = max(max(len(t) for t in ts), 1)
         NS = max(max(len(t.limits) for t in ts), 1)
-        prob = from_numpy_traces(*pack_rows(ts, len(ts), T, NS), dev)
-        pending.append((grp, est_encode(*prob)))
+        with spans.span("est_pack"):
+            rows = pack_rows(ts, len(ts), T, NS)
+        with spans.span("est_upload"):
+            prob = from_numpy_traces(*rows, dev)
+        del rows  # the host rows go before the next group is packed
+        with spans.span("est_launch"):
+            pending.append((grp, est_encode(*prob)))
+        spans.count("est_launches")
+        spans.count("est_traces", len(ts))
+        spans.count("est_padded_bins", len(ts) * T)
     streams = [None] * len(traces)
     for grp, raw in pending:
         for i, s in zip(grp, est_collect(*raw)):
             streams[i] = s
+    spans.count("est_stored", sum(len(s) for s in streams))
     return streams
 
 
 def est_collect(tok, car, count):
     """Read one est_encode result back, cut to its longest token segment,
-    and finalize it on the host -> per-trace stream bytes."""
-    count = count.cpu()
-    M = int(count.max()) if count.numel() else 0
-    return finalize_streams(tok[:, :M], car[:, :M], count)
+    and finalize it on the host -> per-trace stream bytes.  In a call of
+    an entry the read-back is span est_collect and the finalize
+    est_finalize."""
+    with spans.span("est_collect"):
+        count = count.cpu()
+        M = int(count.max()) if count.numel() else 0
+        tok, car = tok[:, :M].cpu(), car[:, :M].cpu()
+    with spans.span("est_finalize"):
+        return finalize_streams(tok, car, count)

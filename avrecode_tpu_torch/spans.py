@@ -48,7 +48,8 @@ __all__ = ["KEYS", "Recording", "Span", "bind", "call", "closed", "count",
 # span totals (seconds), the native extractor's counts and seconds (see
 # host/native.py::extract), the traces' bins and the bytes of their
 # per-bin records (parallel/pipeline.py::extract_traces), and the device
-# stage's counts
+# stage's counts: the lane path's, then the est path's
+# (ops/est_coder.py::encode_traces_est)
 KEYS = (
     "extract_s", "extract_native_s", "extract_walk_s", "extract_stitch_s",
     "extract_py_s", "extract_release_s",
@@ -56,6 +57,9 @@ KEYS = (
     "gop_model_s", "gop_job_s", "gop_cpu_s", "gop_pool_s",
     "wait_s", "pack_s", "copy_s", "dispatch_s", "upload_s", "collect_s",
     "envelope_s", "serialise_s", "dispatches", "bins", "trace_bytes",
+    "est_pack_s", "est_upload_s", "est_launch_s", "est_collect_s",
+    "est_finalize_s", "est_launches", "est_traces", "est_padded_bins",
+    "est_stored",
 )
 
 _clock = time.perf_counter_ns
