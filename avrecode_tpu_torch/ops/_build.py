@@ -110,6 +110,9 @@ def load():
     lib.unpack_p1_idx_launch.restype = ctypes.c_int
     lib.est_encode_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 6 + [ptr]
     lib.est_encode_launch.restype = ctypes.c_int
+    lib.est_unpack_launch.argtypes = (
+        [ptr, ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ptr] * 5)
+    lib.est_unpack_launch.restype = ctypes.c_int
     lib.lane_decode_launch.argtypes = (
         [ptr, ctypes.c_longlong] + [ptr] * 4 + [ctypes.c_int] * 2 + [ptr])
     lib.lane_decode_launch.restype = ctypes.c_int

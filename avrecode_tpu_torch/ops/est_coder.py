@@ -12,6 +12,10 @@ RecodeModel coder.
                       CUDA tensors; est_encode_plain for CPU tensors
   * est_encode_plain  estimator.range_encode(bits, estimator.model_probs(..))
                       (loops over bins, vectorised over traces)
+  * est_unpack        kernel wrapper: the CUDA kernel csrc/est_unpack.cu,
+                      which replaces no TPU kernel, derives a group's [S, T]
+                      rows on the card from the traces' 8-byte records;
+                      est_unpack_plain for CPU tensors
 
 The TPU module's GROUP = 16 and its power-of-two rounding of T and NS are
 VMEM and compile-shape workarounds and have no counterpart here: groups are
@@ -203,6 +207,18 @@ def _launch(slots, bits, pcabs, limits, valid, cls, tok, car, count):
         )
 
 
+def slot_tables(traces, S, NS):
+    """The est problem's per-slot tables as numpy int32 [S, NS] (limits,
+    cls), row i holding traces[i]'s; padding slots have the default
+    halving limit and class 0."""
+    limits = np.full((S, NS), 0x60, np.int32)
+    cls = np.zeros((S, NS), np.int32)
+    for i, t in enumerate(traces):
+        limits[i, : len(t.limits)] = t.limits
+        cls[i, : len(t.cls)] = t.cls
+    return limits, cls
+
+
 def pack_rows(traces, S, T, NS):
     """Traces -> the est problem as numpy int32 arrays (slots, bits, pcabs,
     limits, valid, cls): rows [S, T] / [S, NS], row i holding traces[i];
@@ -211,16 +227,13 @@ def pack_rows(traces, S, T, NS):
     bits = np.zeros((S, T), np.int32)
     pcabs = np.zeros((S, T), np.int32)
     valid = np.zeros((S, T), np.int32)
-    limits = np.full((S, NS), 0x60, np.int32)
-    cls = np.zeros((S, NS), np.int32)
     for i, t in enumerate(traces):
         k = len(t)
         slots[i, :k] = t.slots
         bits[i, :k] = t.bits
         pcabs[i, :k] = t.pcabs
         valid[i, :k] = 1
-        limits[i, : len(t.limits)] = t.limits
-        cls[i, : len(t.cls)] = t.cls
+    limits, cls = slot_tables(traces, S, NS)
     return slots, bits, pcabs, limits, valid, cls
 
 
@@ -232,20 +245,132 @@ def from_numpy_traces(slots, bits, pcabs, limits, valid, cls, device):
                  for a in (slots, bits, pcabs, limits, valid, cls))
 
 
+def trace_records(t):
+    """A trace's per-bin records as int64 [n] (host/native.py's NativeTrace
+    layout: lo32 = slot | bit << 24, hi32 = pcab | p1 << 16): a native
+    trace's recs viewed zero-copy; any other trace's (the Python
+    extractor's TraceModel) slots, bits and pcabs packed into that layout,
+    p1 left 0.  Raises ValueError for a native trace whose slot ids were
+    not remapped (extracted with want_slots=False) and for a field that
+    does not fit its bits."""
+    recs = getattr(t, "recs", None)
+    if recs is not None:
+        if len(recs) and not len(t.limits):
+            raise ValueError(
+                "trace extracted with want_slots=False: slot ids were not "
+                "remapped, so the est stage cannot code it")
+        return recs.view(np.int64)
+    slots, bits, pcabs = (np.asarray(a, np.int64)
+                          for a in (t.slots, t.bits, t.pcabs))
+    if ((slots >> 24) | (bits >> 1) | (pcabs >> 16)).any():
+        raise ValueError("est problem out of range: a slot, bit or pcab does "
+                         "not fit the 8-byte record")
+    return slots | bits << 24 | pcabs << 32
+
+
+def _check_records(recs, S, T):
+    """est_unpack's contract: 1 to S int64 [n_i] tensors, contiguous, on one
+    device, n_i <= T."""
+    if not 1 <= len(recs) <= S:
+        raise ValueError(f"est_unpack takes 1 to S={S} traces, got {len(recs)}")
+    if any(r.dtype != torch.int64 or r.dim() != 1 for r in recs):
+        raise TypeError("records must be 1-D int64 tensors")
+    if any(r.numel() > T for r in recs):
+        raise ValueError(f"a trace is longer than T={T}")
+    if not all(r.is_contiguous() for r in recs):
+        raise ValueError("records must be contiguous")
+    if len({r.device for r in recs}) != 1:
+        raise ValueError("records must share one device")
+
+
+def est_unpack_plain(recs, S, T):
+    """Plain torch version of the unpack: traces' records (int64 [n_i],
+    trace_records' layout) -> the rows (slots, bits, pcabs, valid), int32
+    [S, T], that pack_rows gives for the same traces: row i from recs[i],
+    zeros past its length and in rows len(recs)..S-1."""
+    _check_records(recs, S, T)
+    dev = recs[0].device
+    slots, bits, pcabs, valid = (
+        torch.zeros((S, T), dtype=torch.int32, device=dev) for _ in range(4))
+    for i, r in enumerate(recs):
+        k = r.numel()
+        slots[i, :k] = r & 0xFFFFFF
+        bits[i, :k] = (r >> 24) & 1
+        pcabs[i, :k] = (r >> 32) & 0xFFFF
+        valid[i, :k] = 1
+    return slots, bits, pcabs, valid
+
+
+def est_unpack(recs, S, T):
+    """Kernel wrapper of the unpack (see est_unpack_plain): CUDA tensors
+    launch the CUDA kernel csrc/est_unpack.cu on the current stream without
+    synchronising (raises if it cannot build or launch); CPU tensors run
+    est_unpack_plain.  est_unpack.launches counts kernel launches."""
+    _check_records(recs, S, T)
+    dev = recs[0].device
+    if dev.type == "cpu":
+        return est_unpack_plain(recs, S, T)
+    if dev.type != "cuda":
+        raise ValueError(f"est_unpack takes cuda or cpu tensors, not {dev}")
+    if any(r.data_ptr() % 8 for r in recs if r.numel()):
+        raise ValueError("records must start on an 8-byte boundary")
+    rows = tuple(torch.empty((S, T), dtype=torch.int32, device=dev)
+                 for _ in range(4))
+    if S * T:
+        _unpack_launch(record_table(recs), len(recs), rows)
+    return rows
+
+
+def record_table(recs):
+    """The unpack kernel's table of checked records (est_unpack): int64
+    [n, 2], each trace's device address and length, on their card."""
+    return _upload(np.array([[r.data_ptr(), r.numel()] for r in recs],
+                            np.int64), recs[0].device)
+
+
+def _unpack_launch(table, n, rows):
+    """Launch csrc/est_unpack.cu on the current stream: the n traces of
+    `table` (record_table) into `rows`, four int32 [S, T] CUDA tensors
+    (S >= n, S x T >= 1); raises if it cannot build or launch."""
+    from ._build import load
+
+    lib = load()
+    S, T = rows[0].shape
+    dev = rows[0].device
+    with torch.cuda.device(dev):
+        err = lib.est_unpack_launch(
+            table.data_ptr(), n, S, T, *(x.data_ptr() for x in rows),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"est_unpack kernel launch failed: cudaError {err} "
+            f"({lib.kernel_error_string(err).decode()})"
+        )
+    est_unpack.launches += 1
+
+
+est_unpack.launches = 0
+
+
 def encode_traces_est(traces, device=None):
     """Device entropy stage for substream_bins=0: traces -> per-trace
     stream bytes, byte-identical to RecodeModel(...).finish().
 
     Traces are sorted by length and cut into groups of at most GROUP_BINS
-    padded bins, each padded to its own longest trace and slot table.
+    padded bins, each padded to its own longest trace and slot table.  A
+    group goes to the device as its traces' records (trace_records), 8
+    bytes a bin, and its slot tables; est_unpack derives its rows there.
     Every group is launched before any is read back; the read-back is cut
     to the group's longest token segment.
 
-    In a call of an entry each group's pack_rows is span est_pack, its
-    upload est_upload and est_encode (with its range check's read-back)
-    est_launch (est_collect adds est_collect and est_finalize); the groups
-    (stats "est_launches"), traces ("est_traces"), padded bins S x T
-    ("est_padded_bins") and stream bytes out ("est_stored") are counted."""
+    In a call of an entry each group's records and slot tables on the host
+    are span est_pack, on CUDA from the second group on the wait for the
+    est kernel before (whose stream and staging buffers the uploads share)
+    est_wait, its uploads and unpack est_upload and est_encode (with its
+    range check's read-back) est_launch (est_collect adds est_collect and
+    est_finalize); the groups (stats "est_launches"), traces
+    ("est_traces"), padded bins S x T ("est_padded_bins") and stream bytes
+    out ("est_stored") are counted."""
     dev = resolve_device(device)
     order = sorted(range(len(traces)), key=lambda i: len(traces[i]))
     groups, grp = [], []
@@ -259,24 +384,39 @@ def encode_traces_est(traces, device=None):
     pending = []
     for grp in groups:
         ts = [traces[i] for i in grp]
+        S = len(ts)
         T = max(max(len(t) for t in ts), 1)
         NS = max(max(len(t.limits) for t in ts), 1)
         with spans.span("est_pack"):
-            rows = pack_rows(ts, len(ts), T, NS)
+            recs = [trace_records(t) for t in ts]
+            tables = slot_tables(ts, S, NS)
+        if pending and dev.type == "cuda":
+            with spans.span("est_wait"):
+                torch.cuda.current_stream(dev).synchronize()
         with spans.span("est_upload"):
-            prob = from_numpy_traces(*rows, dev)
-        del rows  # the host rows go before the next group is packed
+            prob = _records_problem(recs, tables, S, T, dev)
+        del recs, tables
         with spans.span("est_launch"):
             pending.append((grp, est_encode(*prob)))
         spans.count("est_launches")
-        spans.count("est_traces", len(ts))
-        spans.count("est_padded_bins", len(ts) * T)
+        spans.count("est_traces", S)
+        spans.count("est_padded_bins", S * T)
     streams = [None] * len(traces)
     for grp, raw in pending:
         for i, s in zip(grp, est_collect(*raw)):
             streams[i] = s
     spans.count("est_stored", sum(len(s) for s in streams))
     return streams
+
+
+def _records_problem(recs, tables, S, T, dev):
+    """A group's est problem on `dev` from its traces' records (numpy int64,
+    trace_records) and slot tables: the records and tables uploaded, the
+    rows unpacked by est_unpack -> est_encode's arguments."""
+    limits, cls = (_upload(a, dev) for a in tables)
+    slots, bits, pcabs, valid = est_unpack(
+        [_upload(r, dev) for r in recs], S, T)
+    return slots, bits, pcabs, limits, valid, cls
 
 
 def est_collect(tok, car, count):

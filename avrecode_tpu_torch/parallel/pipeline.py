@@ -243,14 +243,15 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
     (extract_*, gop_*, bins, trace_bytes), the container (serialise_s) and
     the traces' release; on the lane path with one device the pack into a
     group (pack_s), dispatch_s and upload_s, the read-back (collect_s) and
-    the envelopes; on the est path with one device each group's pack_rows
-    (est_pack_s), upload (est_upload_s), launch with its range check's
-    read-back (est_launch_s), read-back (est_collect_s) and host finalize
-    (est_finalize_s), and the groups coded (est_launches), traces
+    the envelopes; on the est path with one device each group's records
+    and slot tables (est_pack_s), wait for the est kernel before
+    (est_wait_s), upload and unpack (est_upload_s), launch with its range
+    check's read-back (est_launch_s), read-back (est_collect_s) and host
+    finalize (est_finalize_s), and the groups coded (est_launches), traces
     (est_traces), padded bins (est_padded_bins) and stream bytes out
-    (est_stored).  Under a mesh the device stage times only its
-    read-back (collect_s on the lane path; est_collect_s and
-    est_finalize_s on the est path) and counts nothing."""
+    (est_stored).  Under a mesh the device stage times only its read-back
+    (collect_s on the lane path; est_collect_s and est_finalize_s on the
+    est path) and counts nothing."""
     if mesh is not None and device is not None:
         raise ValueError("give mesh or device, not both")
     if mesh is not None:

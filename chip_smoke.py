@@ -65,7 +65,8 @@ Phases; any failure raises and the script exits non-zero:
   7 main     device_compress(substream_bins=0) on the pinned clips at
              slice and gop scope: byte-identical to native.compress (and
              to codec.compress for one clip), roundtripping through both
-             decoders; the est kernel must have launched
+             decoders; the est kernel must have launched, and est_unpack
+             (the records unpacked into its rows) once a launch
   8 full     the clips' slice traces replicated to 1,024 traces in one
              encode_traces_est call; the kernel on that problem against
              the plain version run once on the distinct base traces: every
@@ -73,7 +74,12 @@ Phases; any failure raises and the script exits non-zero:
              CUDA events, the kernel's time beside its bound (phase 5's
              tiled lanes repeat no row, so its plain versions run whole);
              the kernel alone on the longest gop trace
-             and on the longest slice trace replicated 1, 128 and 1,024 times
+             and on the longest slice trace replicated 1, 128 and 1,024 times;
+             then the archive cell's est group (the benchmark's four camera
+             GOPs at gop scope, repeated to 18 GOP-long traces, [18, ~7.4M]):
+             est_unpack's rows equal to pack_rows' and to est_unpack_plain's,
+             exactly, and its launch alone (pointer table and rows made
+             before) timed with CUDA events beside its bound
   9 kernel   lane_decode (CUDA kernel) vs lane_decode_plain on the same card
              tensors, exact: the phase-3 problems encoded on the card by
              lane_encode + finalize and decoded again (bits equal to the
@@ -164,6 +170,7 @@ CLIPS = ["rt_ctr.mkv", "mbaff_b.mkv", "rt_ctr.ts", "rt_ctr.avi",
          "rt_ctr.flv", "rt_ctr.mpg"]
 FULL_L, FULL_B = 8192, 16384  # one full dispatch group at the bench's B
 EST_S = 1024  # traces of the phase-8 est problem
+ARCHIVE_S = 18  # GOP-long traces of the archive cell's est group
 EST_SCALING = (1, 128, 1024)  # copies of one trace, kernel alone
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet): memory
 # rate, and integer operations at half the 67 TFLOP/s float32 rate (an SM
@@ -1272,6 +1279,52 @@ def phase_est_full(dev, clips, S, card):
     return err, ms, plain, bound, by
 
 
+def archive_group(S=ARCHIVE_S):
+    """The archive cell's est group: the benchmark's four camera GOPs
+    extracted at gop scope (native traces with slot tables), repeated to S
+    GOP-long traces, the group that GROUP_BINS cuts from its recordings."""
+    traces = []
+    for i in range(1, 5):
+        path = os.path.join(ROOT, "benchmark", "clips", "camera",
+                            f"cam_gop{i}.264")
+        with open(path, "rb") as f:
+            traces += native.extract(f.read(), "gop", want_slots=True)[3]
+    return [traces[i % len(traces)] for i in range(S)]
+
+
+def phase_est_unpack(dev, card):
+    """est_unpack on the archive cell's group against pack_rows' rows and
+    est_unpack_plain, exactly; the kernel's launch alone, its pointer
+    table and rows made before, timed with CUDA events -> (err, ms, plain
+    ms, bound ms, bound by)."""
+    group = archive_group()
+    S, T = len(group), max(map(len, group))
+    NS = max(len(t.limits) for t in group)
+    n_bins = sum(map(len, group))
+    recs = [tec._upload(tec.trace_records(t), dev) for t in group]
+    got = tec.est_unpack(recs, S, T)
+    packed = tec.from_numpy_traces(*tec.pack_rows(group, S, T, NS), dev)
+    want = (packed[0], packed[1], packed[2], packed[4])
+    ref = []
+    plain = cuda_ms(lambda: ref.append(tec.est_unpack_plain(recs, S, T)), 1)
+    err = max(max_abs_diff(got, want), max_abs_diff(got, ref[0]))
+    if err or not all(torch.equal(a, b) for a, b in zip(got, want)) or \
+            not all(torch.equal(a, b) for a, b in zip(got, ref[0])):
+        raise AssertionError("est_unpack: rows != pack_rows' or plain rows")
+    del packed, want, ref
+    table = tec.record_table(recs)
+    ms = cuda_ms(lambda: tec._unpack_launch(table, S, got), 10)
+    # each valid bin's record read once, the four rows written once, the
+    # pointer table; three masks and shifts a padded bin
+    n_bytes = 8 * n_bins + 16 * S * T + 16 * S
+    bound, by = bound_ms(n_bytes, 3 * S * T)
+    log(f"est_unpack archive group [{S}, {T}] ({n_bins} bins, NS={NS}) on "
+        f"{card}: kernel {ms:.3f} ms, plain {plain:.1f} ms, rows equal to "
+        f"pack_rows' and the plain version's; bound {bound:.3f} ms by {by} "
+        f"({n_bytes} bytes), est_unpack is at {bound / ms:.1%} of it")
+    return err, ms, plain, bound, by
+
+
 def decode_problem(kind, L, B, seed, dev):
     """(decode problem on the card, bits that must come out or None).
     "bytes": random stream bytes, sizes 0, 1, 2, 3 first, then random up to
@@ -2006,7 +2059,8 @@ def main():
     if host_lib is None or not native.available():
         raise RuntimeError("libavtpu.so was not built (make and g++ needed)")
     log(f"build: lane_encode, lane_encode_streams (and its index form), "
-        f"unpack_p1_idx, est_encode and lane_decode kernels {t_k:.1f} s "
+        f"unpack_p1_idx, est_encode, est_unpack and lane_decode kernels "
+        f"{t_k:.1f} s "
         f"({_build.library_path().name}); {host_lib.name} ready after "
         f"{time.time() - t0:.1f} s")
     log(_build.build_log().strip())
@@ -2062,16 +2116,21 @@ def main():
     est_err = phase_est_kernel_vs_plain(dev, EST_CASES + [EST_SWEEP])
 
     # 7 est main path; the launch count covers exactly this phase
-    tec.est_encode.launches = 0
+    tec.est_encode.launches = tec.est_unpack.launches = 0
     phase_est_main_path(dev, CLIPS)
     est_launches = tec.est_encode.launches
-    log(f"est main path: est_encode.launches={est_launches}")
+    unpack_launches = tec.est_unpack.launches
+    log(f"est main path: est_encode.launches={est_launches}, "
+        f"est_unpack.launches={unpack_launches}")
     if est_launches <= 0:
         raise AssertionError("est main path never launched the est_encode kernel")
+    if unpack_launches != est_launches:
+        raise AssertionError("est main path: not one est_unpack a launch")
 
     # 8 est full size
     full_err, est_ms, est_plain_ms, est_bound, est_by = phase_est_full(
         dev, CLIPS, EST_S, card)
+    un_err, un_ms, un_plain_ms, un_bound, un_by = phase_est_unpack(dev, card)
     clock.mark("6-8 est path")
 
     # 9 decode kernel vs plain on the card
@@ -2127,11 +2186,13 @@ def main():
     est_paths = {"device_compress": est_launches, "mesh": mesh_est,
                  "multichip_step": rank_est}
     dec_paths = {"device_decompress": dec_launches, "mesh": mesh_dec}
+    est_unpack_paths = {"device_compress": unpack_launches}
     for name, paths in (("lane_encode", lane_paths), ("est_encode", est_paths),
                         ("lane_decode", dec_paths),
                         ("lane_encode_streams", stream_paths),
                         ("lane_encode_streams_idx", idx_paths),
-                        ("unpack_p1_idx", unpack_paths)):
+                        ("unpack_p1_idx", unpack_paths),
+                        ("est_unpack", est_unpack_paths)):
         log(f"{name} launches by main path: {paths}")
         if min(paths.values()) <= 0:
             raise AssertionError(f"{name}: a main path launched it no time")
@@ -2219,6 +2280,20 @@ def main():
         "bound_by": u_by,
         # no one PyTorch call takes 12-bit fields apart and looks them up
         "library_ms": None,
+    }, {
+        "name": "est_unpack",
+        "route": "cuda",
+        "source": "avrecode_tpu_torch/csrc/est_unpack.cu",
+        # none: the JAX package packs the est problem on the host (numpy)
+        "replaces": None,
+        "launches": sum(est_unpack_paths.values()),
+        "launches_by_path": est_unpack_paths,
+        "max_abs_err": un_err,
+        "ms": un_ms,
+        "plain_ms": un_plain_ms,
+        "bound_ms": un_bound,
+        "bound_by": un_by,
+        "library_ms": None,  # no one PyTorch call unpacks ragged records
     }]}))
     print(card)
     # the smoke drives one card, whatever the machine holds

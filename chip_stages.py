@@ -70,6 +70,19 @@ The parts, all of them by default, in this order:
   decode     device_decompress(blob) on containers of rt_ctr.mkv and
              mbaff_b.mkv at gop scope, v2 (B = 4096) and v1: host model
              pass, pack, upload, kernel, read-back, split, host assembly
+  unpack     the archive cell's est group (chip_smoke.archive_group: the
+             benchmark's four camera GOPs at gop scope, repeated to 18
+             GOP-long traces), brought to the card both ways, pack_rows and
+             its upload against the slot tables, the records' upload and
+             est_unpack (each stage and _records_problem whole), equal
+             rows; then est_unpack's launch alone by CUDA events beside
+             its bound and its plain version on the card
+  archive    the archive cell's longest recording: the four camera GOPs
+             repeated to ARCHIVE_GOPS, device_compress(scope="gop",
+             substream_bins=0) once warm and ARCHIVE_RUNS times with
+             stats, each run's wall, its est stage by the program's spans
+             and counters (those the tree has), its peak RSS and device
+             peak; every container equal to the first
 """
 
 import os
@@ -90,11 +103,16 @@ from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.parallel import pipeline
 from avrecode_tpu_torch.utils.container import SCOPE_GOP, SCOPE_SLICE
 from chip_smoke import (
-    BENCH_GROUPS, BENCH_SET, CLIPS, FULL_B, FULL_L, ROOT, PeakRSS, card_line,
-    decompress_stages, group_ring_bytes, lane_stage_split, log, tiled_problem,
-    tiled_trace)
+    BENCH_GROUPS, BENCH_SET, CLIPS, FULL_B, FULL_L, ROOT, PeakRSS,
+    archive_group, bound_ms, card_line, cuda_ms, decompress_stages,
+    group_ring_bytes, lane_stage_split, log, tiled_problem, tiled_trace)
 
 RUNS = 3
+ARCHIVE_GOPS = 48  # GOPs of the `archive` part's recording
+ARCHIVE_RUNS = 3
+EST_KEYS = ("extract_s", "est_pack_s", "est_upload_s", "est_launch_s",
+            "est_collect_s", "est_finalize_s", "est_wait_s", "serialise_s",
+            "est_launches", "est_padded_bins", "bins")
 CORPUS_BS = (16384, 4096)  # the corpus split's B: the bench's, and ~8 groups
 WINDOWS = (1, 2, 4, 8, 16)  # extraction windows of the `window` part
 GOP_THREADS = (0, 1)  # an extraction's GOP threads in the `window` part
@@ -827,6 +845,78 @@ def est_all(dev):
             est_stages(dev, clip, scope)
 
 
+def est_unpack_stage(dev):
+    group = archive_group()
+    traces = list({id(t): t for t in group}.values())
+    S, T = len(group), max(map(len, group))
+    NS = max(len(t.limits) for t in group)
+    n_bins = sum(map(len, group))
+    st = Stages()
+    for _ in range(RUNS):
+        for t in traces:  # pack_rows caches each trace's fields
+            t._slots = t._bits = t._pcabs = None
+        rows = st.time("pack_rows", lambda: tec.pack_rows(group, S, T, NS))
+        packed = st.time("pack_rows upload",
+                         lambda: tec.from_numpy_traces(*rows, dev))
+        del rows
+        views = [tec.trace_records(t) for t in group]
+        tables = st.time("slot_tables", lambda: tec.slot_tables(group, S, NS))
+        recs = st.time("records upload",
+                       lambda: [tec._upload(v, dev) for v in views])
+        st.time("est_unpack", lambda: tec.est_unpack(recs, S, T))
+        unpacked = st.time("_records_problem", lambda: tec._records_problem(
+            views, tables, S, T, dev))
+        if not all(torch.equal(a, b) for a, b in zip(packed, unpacked)):
+            raise RuntimeError("est_unpack's rows differ from pack_rows'")
+        del packed, unpacked
+    got = tec.est_unpack(recs, S, T)
+    table = tec.record_table(recs)
+    kernel = cuda_ms(lambda: tec._unpack_launch(table, S, got), 10)
+    want = []
+    plain = cuda_ms(lambda: want.append(tec.est_unpack_plain(recs, S, T)), 1)
+    if not all(torch.equal(a, b) for a, b in zip(got, want[0])):
+        raise RuntimeError("est_unpack differs from est_unpack_plain")
+    # each valid bin's record read once, the four rows written once, the
+    # pointer table; three masks and shifts a padded bin
+    n_bytes = 8 * n_bins + 16 * S * T + 16 * S
+    bound, by = bound_ms(n_bytes, 3 * S * T)
+    log(f"est unpack [{S}, {T}] ({n_bins} bins, NS={NS}) on {card_line()}, "
+        f"ms: {st.line()}; est_unpack by CUDA events {kernel:.3f} ms, bound "
+        f"{bound:.3f} ms by {by} ({n_bytes} bytes), at {bound / kernel:.1%} "
+        f"of it; plain on the card {plain:.1f} ms; rows equal to "
+        f"pack_rows' and the plain version's")
+
+
+def archive_split(dev):
+    gops = []
+    for i in range(1, 5):
+        path = os.path.join(ROOT, "benchmark", "clips", "camera",
+                            f"cam_gop{i}.264")
+        with open(path, "rb") as f:
+            gops.append(f.read())
+    data = b"".join(gops[i % len(gops)] for i in range(ARCHIVE_GOPS))
+    want = pipeline.device_compress(data, scope="gop", substream_bins=0,
+                                    device=dev)
+    for _ in range(ARCHIVE_RUNS):
+        stats = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        with PeakRSS() as rss:
+            t0 = time.perf_counter()
+            out = pipeline.device_compress(data, scope="gop",
+                                           substream_bins=0, device=dev,
+                                           stats=stats)
+            wall = time.perf_counter() - t0
+        if out != want:
+            raise RuntimeError("the archive recording's containers differ")
+        split = ", ".join(f"{k} {stats[k]:.3f}" if isinstance(stats[k], float)
+                          else f"{k} {stats[k]}" for k in EST_KEYS
+                          if k in stats)
+        log(f"archive recording ({ARCHIVE_GOPS} GOPs, {len(data)} bytes -> "
+            f"{len(out)}) on {card_line()}: {wall:.3f} s wall; {split}; peak "
+            f"RSS {rss.peak / 1e6:.0f} MB ({rss.before / 1e6:.0f} before), "
+            f"device peak {torch.cuda.max_memory_allocated(dev)} B")
+
+
 def decode_all(dev):
     for clip in ("rt_ctr.mkv", "mbaff_b.mkv"):
         for B in (4096, 0):
@@ -838,7 +928,8 @@ PARTS = {"est": est_all, "pack": lane_pack_stage, "group": group_stages,
          "benchcorpus": bench_corpus, "bigcorpus": big_corpus,
          "copy": copy_split, "route": route_split,
          "transfer": lane_transfer_parts,
-         "decode": decode_all}
+         "decode": decode_all, "unpack": est_unpack_stage,
+         "archive": archive_split}
 
 
 if __name__ == "__main__":

@@ -323,9 +323,60 @@ def test_est_main_path_launches_kernel(cuda):
     data = open(os.path.join(DATA, "rt_ctr.mkv"), "rb").read()
     for scope in ("slice", "gop"):
         before = tec.est_encode.launches
-        out = device_compress(data, scope=scope, substream_bins=0, device=cuda)
+        unpacks = tec.est_unpack.launches
+        stats = {}
+        out = device_compress(data, scope=scope, substream_bins=0, device=cuda,
+                              stats=stats)
         assert tec.est_encode.launches > before
         assert out == native.compress(data, scope=scope)
+        # each group's rows unpacked on the card from its records, once
+        assert tec.est_unpack.launches - unpacks == stats["est_launches"] > 0
+
+
+def _records(lens, seed, dev):
+    """Random 8-byte records (every bit random, p1 and the bits above the
+    bin included) of the given lengths on `dev`."""
+    rng = np.random.default_rng(seed)
+    i64 = np.iinfo(np.int64)
+    return [torch.from_numpy(rng.integers(i64.min, i64.max, n, dtype=np.int64,
+                                          endpoint=True)).to(dev)
+            for n in lens]
+
+
+# (lens, S): a tiny ragged group with an empty trace, a one-bin one and
+# padding rows; an archive-like group, GOP-long traces of millions of bins
+# padded to the longest
+@pytest.mark.parametrize("lens, S", [
+    ((0, 1, 33, 257, 1000), 7),
+    ((7_413_348, 7_353_588, 3_000_001, 1, 0), 5),
+])
+def test_est_unpack_kernel_matches_plain(cuda, lens, S):
+    recs = _records(lens, len(lens) + S, cuda)
+    T = max(lens)
+    before = tec.est_unpack.launches
+    got = tec.est_unpack(recs, S, T)
+    torch.cuda.synchronize()
+    assert tec.est_unpack.launches == before + 1
+    for a, b in zip(got, tec.est_unpack_plain(recs, S, T)):
+        assert a.device.type == "cuda" and a.dtype == torch.int32
+        assert a.shape == (S, T) and torch.equal(a, b)
+
+
+def test_est_record_groups_behind_running_kernels(cuda, monkeypatch):
+    """Small groups, each one's records uploaded through the staging ring
+    and unpacked once the est kernel of the group before has finished
+    (est_wait): the container equals the host codec's."""
+    if not native.available():
+        pytest.skip("native library not built")
+    data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
+    monkeypatch.setattr(tec, "GROUP_BINS", 1 << 15)
+    unpacks = tec.est_unpack.launches
+    stats = {}
+    out = device_compress(data, scope="slice", substream_bins=0, device=cuda,
+                          stats=stats)
+    assert tec.est_unpack.launches - unpacks == stats["est_launches"] > 2
+    assert stats["est_wait_s"] > 0  # each group after the first waited
+    assert out == native.compress(data, scope="slice")
 
 
 # encoder output of every kind and arbitrary bytes ("bytes": streams of 0-3

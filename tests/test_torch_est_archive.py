@@ -3,7 +3,8 @@ benchmark's three small test GOPs through device_compress at gop scope and
 substream_bins=0 (the est path, a v1 container), one call, checked against
 the JAX package's device pipeline and codec on the same recording, the
 native host codec and the benchmark's reference, with the est device
-stage's counters (spans.KEYS) held to the traces and streams of the call.
+stage's counters (spans.KEYS) held to the traces and streams of the call:
+its one group taken to the device as the traces' records.
 
 The plain est loop steps through the longest trace's ~28K bins: ~25 s."""
 
@@ -82,6 +83,11 @@ def test_est_counters_pin_the_traces_and_streams(est_call):
     # three traces of ~28K bins fill one group of GROUP_BINS
     assert len(traces) * max(map(len, traces)) <= est_coder.GROUP_BINS
     assert stats["est_launches"] == 1
+    assert stats["est_wait_s"] == 0  # one group: no kernel before to wait for
+    # the group went as its traces' records: no trace's slots, bits or
+    # pcabs cached on the host
+    assert all(t._slots is None and t._bits is None and t._pcabs is None
+               for t in traces)
     assert stats["est_padded_bins"] == len(traces) * max(map(len, traces))
     assert stats["est_padded_bins"] >= stats["bins"] == sum(map(len, traces))
     assert stats["est_stored"] == sum(map(len, streams)) > 0

@@ -20,9 +20,10 @@ take) or lane_encode_streams (uint16 p1), and pass when the two launched
 at least once between them; off_image_lanes_take_u16 sends lanes of real
 traces with every p1 moved off the squash image through
 lane_streams_device_compact and requires lane_encode_streams and no index
-launch.  The est checks count est_encode, the decoder checks lane_decode
-(and lane_encode, which codes the lanes that lane_decoder_inverts_on_chip
-decodes).  Exits non-zero when a check fails or there is no card.
+launch.  The est checks count est_encode (the single-device one also
+est_unpack, which unpacks native traces' records), the decoder checks
+lane_decode (and lane_encode, which codes the lanes that
+lane_decoder_inverts_on_chip decodes).  Exits non-zero when a check fails or there is no card.
 """
 
 import json
@@ -46,7 +47,8 @@ FUSED = ("lane_encode_streams_idx", "lane_encode_streams")
 #   "first" the first kernel named launched and the others did not.
 CHECKS = {
     "lane_coder_gop_byte_identical": (CLIP, FUSED, "any"),
-    "est_kernel_slice_byte_identical": (SMALL, ("est_encode",), "each"),
+    "est_kernel_slice_byte_identical": (SMALL, ("est_encode", "est_unpack"),
+                                        "each"),
     "device_container_roundtrips_both_decoders": (CLIP, FUSED, "any"),
     "lane_decoder_inverts_on_chip": (CLIP, ("lane_encode", "lane_decode"),
                                      "each"),
