@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device, spans
+from ..parallel.mesh import as_mesh, run_sharded
 from ._mix_tables import STRETCH12
 from .estimator import (APM_CELLS, APM_HIST, HALVE_FAST, N_CLS, est_tables,
                         finalize_streams, model_probs, range_encode)
@@ -352,7 +353,7 @@ def _unpack_launch(table, n, rows):
 est_unpack.launches = 0
 
 
-def encode_traces_est(traces, device=None):
+def encode_traces_est(traces, device=None, mesh=None):
     """Device entropy stage for substream_bins=0: traces -> per-trace
     stream bytes, byte-identical to RecodeModel(...).finish().
 
@@ -370,8 +371,26 @@ def encode_traces_est(traces, device=None):
     range check's read-back) est_launch (est_collect adds est_collect and
     est_finalize); the groups (stats "est_launches"), traces
     ("est_traces"), padded bins S x T ("est_padded_bins") and stream bytes
-    out ("est_stored") are counted."""
-    dev = resolve_device(device)
+    out ("est_stored") are counted.
+
+    mesh (parallel/mesh.make_mesh; not together with device; a device is a
+    mesh of one) cuts the traces into contiguous shards (mesh.run_sharded),
+    each grouped and coded as above on its device, whose spans and counters
+    it adds; the shards' groups are dispatched in turns, and all are read
+    back afterwards in shard order."""
+    parts = run_sharded(
+        len(traces), as_mesh(device, mesh),
+        lambda lo, hi, dev: _dispatch_est(traces[lo:hi], dev), _collect_est)
+    streams = [s for part in parts for s in part]
+    spans.count("est_stored", sum(len(s) for s in streams))
+    return streams
+
+
+def _dispatch_est(traces, dev):
+    """A shard's groups packed, uploaded, unpacked and launched on `dev`,
+    yielding before each wait for its est kernel (run_sharded's turns).
+    Returns (number of traces, pending (group's trace indices, est_encode
+    result) pairs)."""
     order = sorted(range(len(traces)), key=lambda i: len(traces[i]))
     groups, grp = [], []
     for i in order:
@@ -391,6 +410,7 @@ def encode_traces_est(traces, device=None):
             recs = [trace_records(t) for t in ts]
             tables = slot_tables(ts, S, NS)
         if pending and dev.type == "cuda":
+            yield
             with spans.span("est_wait"):
                 torch.cuda.current_stream(dev).synchronize()
         with spans.span("est_upload"):
@@ -401,11 +421,17 @@ def encode_traces_est(traces, device=None):
         spans.count("est_launches")
         spans.count("est_traces", S)
         spans.count("est_padded_bins", S * T)
-    streams = [None] * len(traces)
+    return len(traces), pending
+
+
+def _collect_est(handle):
+    """A shard's groups read back and finalized (est_collect), each stream
+    in its trace's place."""
+    n, pending = handle
+    streams = [None] * n
     for grp, raw in pending:
         for i, s in zip(grp, est_collect(*raw)):
             streams[i] = s
-    spans.count("est_stored", sum(len(s) for s in streams))
     return streams
 
 

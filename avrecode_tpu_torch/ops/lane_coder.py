@@ -32,8 +32,8 @@ rows packed elsewhere (the corpus driver's workers), dispatch_group
 uploads the group from there and launches without a host sync, and
 collect_groups reads back the lengths first and then only the columns that
 hold stream bytes, one bytes object a group, from which GroupStreams cuts
-the envelopes by offset.  lane_dispatch_compact and lane_collect do the
-same for numpy rows and per-lane bytes.
+the envelopes by offset.  lane_streams_device_compact takes numpy rows
+through a LaneBatcher of its own and gives per-lane bytes (lane_collect).
 
 The lane problem comes in two upload forms, as in the JAX package:
   index form  uint8 [L, 3 * Bp / 2]: two 12-bit squash-table indices in three
@@ -43,8 +43,8 @@ The lane problem comes in two upload forms, as in the JAX package:
   u16 form    uint16 [L, Bp]: p1 itself, 2 B a bin; lane_encode_streams.
 The packer picks the form (pack_lanes): the index form where every valid
 bin's p1 lies in the squash table's image, which holds for every trace the
-native recorder makes, the u16 form otherwise.  lane_dispatch_compact codes
-each group in the form of its rows.
+native recorder makes, the u16 form otherwise.  A dispatch group holds
+rows of one form and is coded by that form's kernel.
 
 torch defines no int32 overflow, so the plain version holds uint32 values
 in int64 tensors with explicit & 0xFFFFFFFF masks; a plain compare is then
@@ -61,6 +61,7 @@ import torch
 from .. import resolve_device
 from ..host import native
 from ..models.h264_model import _make_envelope
+from ..parallel.mesh import as_mesh, run_sharded
 from ..spans import count, span
 from ._mix_tables import SQUASH
 
@@ -208,7 +209,7 @@ def unpack_p1_idx(p1pk):
     launch the CUDA kernel csrc/p1_idx.cu on the current stream without
     synchronising (raises if it cannot build or launch); CPU tensors run
     unpack_p1_idx_plain.  unpack_p1_idx.launches counts kernel launches.
-    The lane path calls it only where lane_collect codes an index-form
+    The lane path calls it only where collect_groups codes an index-form
     group again (its overflow fallback)."""
     if p1pk.dtype != torch.uint8 or p1pk.dim() != 2 or p1pk.shape[1] % 48:
         raise ValueError(f"packed indices must be uint8 [L, 3 * B / 2] with "
@@ -765,13 +766,12 @@ class _Group:
 
 
 class _GroupRing:
-    """The process's group staging buffers, beside _Staging: the packer
-    writes a whole group's rows in place, so the upload reads them where
-    they lie, and a group's buffers are as large as its rows.  _Staging
-    stays for everything else that goes up (the est path's rows, the
-    decoder's streams, lane rows handed in as numpy arrays): arrays of any
-    size, copied in pieces of STAGE_BYTES, so its pinned memory does not
-    grow with them.
+    """The process's group staging buffers, beside _Staging: every lane row
+    goes up from a group (the packer writes a whole group's rows in place,
+    numpy rows are copied in), so the upload reads them where they lie, and
+    a group's buffers are as large as its rows.  _Staging carries the est
+    path's and the decoder's uploads: arrays of any size, copied in pieces
+    of STAGE_BYTES, so its pinned memory does not grow with them.
 
     For a CUDA device, pinned groups of `rows` rows a (form, Bp, rows),
     allocated once and reused in turns, up to GROUP_RING of each (more only
@@ -854,30 +854,6 @@ def dispatch_group(group, n, dev, bits_per_byte=4):
     with span("dispatch"):
         prob = upload_group(group, n, dev)
         return _launch(n, prob[2], prob, group.Bp, bits_per_byte)
-
-
-def lane_dispatch_compact(p1, bitw, lens, device=None, bits_per_byte=4):
-    """Dispatch phase of lane_streams_device_compact: upload every group of
-    GROUP_ROWS numpy lane rows (through the pinned staging ring, _upload)
-    and code it with one fused launch, on the current stream of `device`,
-    without a host sync, so callers overlap host work (the next shard of a
-    mesh) with device work, then drain with lane_collect.
-
-    p1 is either upload form (see the module docstring): uint8 packed
-    indices [L, 3 * Bp / 2], which lane_encode_streams_idx codes, or uint16
-    p1 [L, Bp], which lane_encode_streams codes; the packer (pack_lanes)
-    chose it by the squash-image rule.  Returns one pending handle a group
-    (dispatch_group's)."""
-    dev = resolve_device(device)
-    L, Bp = p1.shape[0], lane_bins(p1)
-    if Bp > MAX_B:
-        raise ValueError(f"B={Bp} > {MAX_B} overflows 16-bit carry counts")
-    pending = []
-    for lo in range(0, L, GROUP_ROWS):
-        hi = min(lo + GROUP_ROWS, L)
-        prob = tuple(_upload(a[lo:hi], dev) for a in (p1, bitw, lens))
-        pending.append(_launch(hi - lo, prob[2], prob, Bp, bits_per_byte))
-    return pending
 
 
 def read_group(n, out, nbytes, total):
@@ -1012,11 +988,13 @@ class LaneBatcher:
     the rows waiting (the packer gives a file the u16 form where its p1
     leave the squash image) first dispatches those as a group of their
     own.  A file that crosses a group boundary is packed apart and copied
-    in pieces."""
+    in pieces.  bits_per_byte sets the groups' byte bound a lane
+    (dispatch_group)."""
 
-    def __init__(self, device, big=None):
+    def __init__(self, device, big=None, bits_per_byte=4):
         self.dev = resolve_device(device)
         self.big = big or GROUP_ROWS
+        self.bits_per_byte = bits_per_byte
         self.group = None  # the group being filled
         self.acc = 0  # its rows filled
         self.index = True  # the form of the next group
@@ -1038,7 +1016,8 @@ class LaneBatcher:
         return self.group
 
     def _flush(self):
-        self.pending.append(dispatch_group(self.group, self.acc, self.dev))
+        self.pending.append(dispatch_group(self.group, self.acc, self.dev,
+                                           self.bits_per_byte))
         self.group, self.acc = None, 0
 
     def add(self, p1, bitw, lens):
@@ -1102,11 +1081,13 @@ class LaneBatcher:
             self._flush()
         return (lo, self.rows), spans
 
-    def _dispatch_rest(self):
-        """Dispatch the rows that wait; an empty group goes back."""
+    def dispatch(self):
+        """Dispatch the rows that wait (an empty group goes back): every
+        pending group handle, in row order."""
         if self.acc:
             self._flush()
         self.close()
+        return self.pending
 
     def close(self):
         """Give the group being filled back to the ring, its rows unsent
@@ -1118,8 +1099,7 @@ class LaneBatcher:
     def finish(self):
         """Dispatch the rows that wait, then read every group back:
         GroupStreams over the global rows."""
-        self._dispatch_rest()
-        return GroupStreams(collect_groups(self.pending))
+        return GroupStreams(collect_groups(self.dispatch()))
 
 
 class StreamingBatcher(LaneBatcher):
@@ -1146,7 +1126,7 @@ class StreamingBatcher(LaneBatcher):
     def finish(self):
         """Dispatch the rows that wait and read the last group back:
         `streams`, over every row appended."""
-        self._dispatch_rest()
+        self.dispatch()
         self._read()
         return self.streams
 
@@ -1154,10 +1134,12 @@ class StreamingBatcher(LaneBatcher):
 def lane_streams_device_compact(p1, bitw, lens, device=None,
                                 bits_per_byte=4):
     """The fused kernel on pre-packed compact arrays in either upload form
-    (see pack_lanes) -> list of per-lane stream bytes."""
-    return lane_collect(
-        lane_dispatch_compact(p1, bitw, lens, device, bits_per_byte)
-    )
+    (see pack_lanes) -> list of per-lane stream bytes: the rows copied into
+    a LaneBatcher's groups of GROUP_ROWS, each dispatched, then all read
+    back (lane_collect)."""
+    batcher = LaneBatcher(device, bits_per_byte=bits_per_byte)
+    batcher.add(p1, bitw, lens)
+    return lane_collect(batcher.dispatch())
 
 
 def lane_streams_device(bitp1, lens, device=None, bits_per_byte=4):
@@ -1254,7 +1236,7 @@ def pack_lanes(traces, B):
     """Traces -> compact lane problem (p1, bitw, lens, spans), p1 in the
     index form (uint8 packed squash indices) where every valid bin's p1
     lies in the squash table's image and in the u16 form otherwise, the
-    rule of the JAX package's lane_dispatch_compact.  Native traces go
+    rule of the JAX package's lane dispatch (choose_form).  Native traces go
     through the one-pass native packer (host/native.lane_pack; equal to
     split_lanes_recs and pack_p1_idx, its plain version; LaneTraces from
     their codes, to the same rows), Python-extracted ones through
@@ -1275,30 +1257,37 @@ def choose_form(p1u16, lens):
     return p1pk if ok else p1u16
 
 
-def encode_traces_lanes(traces, B, device=None, encode_fn=None):
+def encode_traces_lanes(traces, B, device=None, mesh=None):
     """Device entropy stage: traces -> per-trace sub-stream ENVELOPE bytes
     (the v2 container's stream blob for substream_bins=B), byte-identical
-    to RecodeModel(..., substream_bins=B).finish().  The lanes go through a
-    LaneBatcher of their own: native traces packed straight into the
-    groups' staging buffers, the envelopes cut from each group's one
-    read-back by offset.
+    to RecodeModel(..., substream_bins=B).finish(): dispatch_traces_lanes,
+    then collect_traces_lanes.
 
-    encode_fn overrides the coder (a mesh-sharded one, see
-    parallel/pipeline._mesh_lane_encoder): it takes the compact lane
-    problem (p1, bitw, lens) as numpy arrays, p1 in either upload form,
-    and returns every lane's stream bytes, as lane_streams_device_compact
-    does on one device.  It names its own devices, so it is not given
-    together with `device`."""
-    if encode_fn is not None and device is not None:
-        raise ValueError("give encode_fn or device, not both")
-    dev = None if encode_fn is not None else resolve_device(device)
-    if not traces:
-        return []
-    if encode_fn is not None:
-        p1, bitw, lens, spans = pack_lanes(traces, B)
-        streams = encode_fn(p1, bitw, lens)
-        return [_make_envelope(streams[lo:hi]) for lo, hi in spans]
-    batcher = LaneBatcher(dev)
-    _, spans = batcher.add_traces(traces, B)
-    got = batcher.finish()
+    mesh (parallel/mesh.make_mesh; not together with device; a device is a
+    mesh of one) cuts the traces into contiguous shards (mesh.run_sharded):
+    every shard is dispatched on its device, then all are collected in
+    shard order."""
+    parts = run_sharded(
+        len(traces), as_mesh(device, mesh),
+        lambda lo, hi, dev: dispatch_traces_lanes(traces[lo:hi], B, dev),
+        collect_traces_lanes)
+    return [e for part in parts for e in part]
+
+
+def dispatch_traces_lanes(traces, B, device=None):
+    """Dispatch half of encode_traces_lanes: the traces' lanes go through a
+    LaneBatcher of their own on `device` (native traces packed straight
+    into the groups' staging buffers) and every group is launched, without
+    a host sync.  Returns (pending group handles, each trace's lane
+    range)."""
+    batcher = LaneBatcher(device)
+    spans = batcher.add_traces(traces, B)[1] if traces else []
+    return batcher.dispatch(), spans
+
+
+def collect_traces_lanes(handle):
+    """Collect half of encode_traces_lanes: each group read back once, each
+    trace's envelope cut from it by offset."""
+    pending, spans = handle
+    got = GroupStreams(collect_groups(pending))
     return [got.envelope(lo, hi) for lo, hi in spans]

@@ -40,8 +40,7 @@ the unsigned compare the JAX version builds from a sign flip.
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..parallel.mesh import check_mesh, on_shard, shard_ranges, shard_streams
+from ..parallel.mesh import as_mesh, run_sharded
 from .lane_coder import CHUNK, _upload
 
 TOP = 1 << 24
@@ -291,36 +290,31 @@ def decode_streams_lanes(stream_list, p1s, lens, device=None, mesh=None):
     int32 [L, B] bits on that device, 0 beyond lens (equal in value to the
     JAX decode_streams_lanes).
 
-    mesh (parallel/mesh.make_mesh; not together with device) cuts the lanes
-    into one contiguous shard a mesh entry: every non-empty shard is packed
-    and uploaded to its device and decoded there by one lane_decode launch
-    on a stream of its own, then all are joined on the first entry's
-    device.  Lanes are independent, so no collective is needed."""
-    if mesh is not None and device is not None:
-        raise ValueError("give mesh or device, not both")
-    mesh = check_mesh(mesh) if mesh is not None else (resolve_device(device),)
+    mesh (parallel/mesh.make_mesh; not together with device; a device is a
+    mesh of one) cuts the lanes into one contiguous shard a mesh entry
+    (mesh.run_sharded): every non-empty shard is packed and uploaded to its
+    device and decoded there by one lane_decode launch, then all are joined
+    on the first entry's device.  Lanes are independent, so no collective
+    is needed."""
+    mesh = as_mesh(device, mesh)
     stream_list = list(stream_list)
     L = len(stream_list)
     p1s = np.asarray(p1s)
     B = int(p1s.shape[1]) if L else 0
     p1s = p1s.reshape(L, B)
     lens = np.asarray(lens, np.int32).reshape(-1)
-    # an empty problem still goes to the first device, as one empty shard
-    shards = [(dev, rows) for dev, rows in zip(mesh, shard_ranges(L, len(mesh)))
-              if rows[1] > rows[0]] or [(mesh[0], (0, 0))]
-    work = []
-    for (dev, (lo, hi)), cuda_stream in zip(
-            shards, shard_streams([dev for dev, _ in shards])):
-        with on_shard(cuda_stream):
-            prob = pack_decode_problem(stream_list[lo:hi], p1s[lo:hi],
-                                       lens[lo:hi])
-            work.append((cuda_stream,
-                         lane_decode(*from_numpy_problem(*prob, dev))))
-    parts = []
-    for cuda_stream, bitw in work:
-        if cuda_stream is not None:
-            cuda_stream.synchronize()
-        parts.append(bitw.to(mesh[0]))
+
+    def dispatch(lo, hi, dev):
+        prob = pack_decode_problem(stream_list[lo:hi], p1s[lo:hi],
+                                   lens[lo:hi])
+        return lane_decode(*from_numpy_problem(*prob, dev))
+
+    def collect(bitw):
+        if bitw.is_cuda:  # the shard's stream, before another reads it
+            torch.cuda.current_stream(bitw.device).synchronize()
+        return bitw.to(mesh[0])
+
+    parts = run_sharded(L, mesh, dispatch, collect)
     bitw = torch.cat(parts)
     shifts = torch.arange(32, dtype=torch.int32, device=bitw.device)
     bits = (bitw[:, :, None] >> shifts) & 1

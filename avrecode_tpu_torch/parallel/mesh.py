@@ -3,9 +3,16 @@
 The JAX package shards arrays over a jax.sharding.Mesh with one "dp" axis.
 Here a mesh is a plain tuple of torch.devices, one entry a shard; entries
 may repeat, and shards on one card then run on CUDA streams of their own.
-Lanes and traces are independent by format, so a mesh needs no collective:
-rows are cut into contiguous shards, every shard is uploaded to its device
-and launched there, and all shards are drained afterwards in order.
+A device is a mesh of one.  Traces and lanes are independent by format, so
+a mesh needs no collective: run_sharded, the one shard loop, cuts the items
+into contiguous shards, dispatches every shard on its device and reads all
+back afterwards in order.
+
+device_compress cuts traces, not lanes: each shard runs the one-device
+stage on its traces, and the lane path packs a shard's traces straight
+into its dispatch groups, whose rows could not be cut again without a
+second pack.  The grain is therefore coarser than the lane axis (a clip of
+one GOP, one trace, uses one shard whatever the mesh).
 
 (Several processes with one rank each are the other shape of parallelism:
 parallel/ranks.py and parallel/multihost.py, over torch.distributed.)
@@ -14,6 +21,7 @@ parallel/ranks.py and parallel/multihost.py, over torch.distributed.)
 import collections
 import contextlib
 import functools
+import inspect
 
 import torch
 
@@ -41,15 +49,6 @@ def make_mesh(n_devices=None, device=None):
             f"present); name one device to put several shards on it"
         )
     return tuple(torch.device("cuda", i) for i in range(n))
-
-
-def check_mesh(mesh):
-    """A mesh as a tuple of torch.devices (raises on an empty one, or on a
-    card where there is none)."""
-    mesh = tuple(resolve_device(d) for d in mesh)
-    if not mesh:
-        raise ValueError("a mesh needs at least one shard")
-    return mesh
 
 
 def shard_ranges(n_rows, n_shards):
@@ -91,3 +90,52 @@ def on_shard(stream):
     else:
         with torch.cuda.stream(stream):
             yield
+
+
+def as_mesh(device=None, mesh=None):
+    """The mesh of a call that takes a device or a mesh, not both: the
+    mesh as a tuple of torch.devices (raises on an empty one, or on a card
+    where there is none), or the device as a mesh of one."""
+    if mesh is None:
+        return (resolve_device(device),)
+    if device is not None:
+        raise ValueError("give mesh or device, not both")
+    mesh = tuple(resolve_device(d) for d in mesh)
+    if not mesh:
+        raise ValueError("a mesh needs at least one shard")
+    return mesh
+
+
+def run_sharded(n_items, mesh, dispatch, collect):
+    """The mesh's shard loop: items [0, n_items) cut by shard_ranges, then
+    dispatch(lo, hi, dev) for each non-empty shard on its stream, then
+    collect(handle) for each in shard order on the same stream; returns
+    the collected results in shard order.  No items still go to the first
+    device, as one empty shard.  A mesh of one entry runs on the caller's
+    current stream, as a call without a mesh would.
+
+    A dispatch that waits for its own device between groups is a
+    generator: it yields before each such wait and returns its handle.
+    The shards' generators are run in turns, a group each, so that one
+    shard's wait holds back no other shard's dispatch."""
+    streams = [None] if len(mesh) == 1 else shard_streams(mesh)
+    shards = [(dev, stream, lo, hi) for dev, stream, (lo, hi) in zip(
+        mesh, streams, shard_ranges(n_items, len(mesh))) if hi > lo]
+    work = []
+    for dev, stream, lo, hi in shards or [(mesh[0], streams[0], 0, 0)]:
+        with on_shard(stream):
+            work.append([stream, dispatch(lo, hi, dev)])
+    turns = [w for w in work if inspect.isgenerator(w[1])]
+    while turns:
+        for w in list(turns):
+            with on_shard(w[0]):
+                try:
+                    next(w[1])
+                except StopIteration as done:
+                    w[1] = done.value
+                    turns.remove(w)
+    out = []
+    for stream, handle in work:
+        with on_shard(stream):
+            out.append(collect(handle))
+    return out

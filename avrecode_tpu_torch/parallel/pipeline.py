@@ -22,10 +22,11 @@ The JAX package expresses two shapes of parallelism with one Mesh; the port
 uses PyTorch's idiom for each:
 
   one process, several devices  device_compress(mesh=...): the mesh is a
-           tuple of torch.devices (parallel/mesh.py), the lane rows or the
-           traces are cut into contiguous shards, one a device, and no
-           collective is needed.  Unlike the JAX package, which runs its
-           XLA scan under a mesh, every shard here launches the CUDA kernel.
+           tuple of torch.devices (parallel/mesh.py; a device is a mesh of
+           one), the traces are cut into contiguous shards, one a device,
+           each shard runs the one-device stage, and no collective is
+           needed.  Unlike the JAX package, which runs its XLA scan under a
+           mesh, every shard here launches the CUDA kernels.
   several processes, one rank each  multichip_step: the SPMD function every
            rank of a torch.distributed group calls on its own rows, with the
            billing all_reduce (parallel/ranks.py and parallel/multihost.py
@@ -64,12 +65,10 @@ from ..ops.lane_coder import (
     StreamingBatcher,
     auto_substream_bins,
     encode_traces_lanes,
-    lane_collect,
-    lane_dispatch_compact,
     pack_lanes,
 )
 from ..utils.container import KIND_SLICE, SCOPE_GOP, SCOPE_SLICE
-from .mesh import check_mesh, make_mesh, on_shard, shard_ranges, shard_streams
+from .mesh import as_mesh, make_mesh
 from .ranks import collective_device, rank_device
 
 __all__ = [
@@ -160,65 +159,6 @@ def _serialize(scope_id, sps, pps, blocks, traces, streams, substream_bins):
         )
 
 
-def _mesh_lane_encoder(mesh):
-    """Lane-sharded encode_fn for ops.lane_coder.encode_traces_lanes: lanes
-    (sub-streams) are independent by format, so multi-device compression is
-    the [L, B] lane axis cut into one contiguous shard a mesh entry, with
-    no collective.
-
-    Every non-empty shard is uploaded to its device and coded there by the
-    fused kernel of its rows' upload form (lane_encode_streams_idx or
-    lane_encode_streams), each on a stream of its own and none waiting for
-    the host; then all are read back in order."""
-    mesh = check_mesh(mesh)
-
-    def encode(p1, bitw, lens):
-        work = [
-            (dev, stream, lo, hi)
-            for dev, stream, (lo, hi) in zip(
-                mesh, shard_streams(mesh), shard_ranges(p1.shape[0],
-                                                        len(mesh)))
-            if hi > lo
-        ]
-        pending = []
-        for dev, stream, lo, hi in work:
-            with on_shard(stream):
-                pending.append(lane_dispatch_compact(
-                    p1[lo:hi], bitw[lo:hi], lens[lo:hi], dev))
-        streams = []
-        for (_, stream, _, _), handles in zip(work, pending):
-            with on_shard(stream):
-                streams.extend(lane_collect(handles))
-        return streams
-
-    return encode
-
-
-def _mesh_est_streams(traces, mesh):
-    """Est path under a mesh: pack_traces' [S, T] problem, S padded to the
-    mesh, cut into one contiguous shard of traces a mesh entry; each
-    non-empty shard runs est_encode on its device and stream, and all are
-    read back and finalized in order.  (est_encode reads its range-check
-    flag before it launches, so a shard's kernel runs while the next shard
-    uploads.)"""
-    mesh = check_mesh(mesh)
-    n = len(mesh)
-    arrays = pack_traces(traces, pad_multiple=n)
-    per = arrays[0].shape[0] // n
-    work = []
-    for i, (dev, stream) in enumerate(zip(mesh, shard_streams(mesh))):
-        lo, hi = i * per, min((i + 1) * per, len(traces))  # padding rows cut
-        if hi > lo:
-            with on_shard(stream):
-                prob = from_numpy_traces(*(a[lo:hi] for a in arrays), dev)
-                work.append((stream, est_encode(*prob)))
-    streams = []
-    for stream, raw in work:
-        with on_shard(stream):
-            streams.extend(est_collect(*raw))
-    return streams
-
-
 def device_compress(data, mesh=None, scope=None, substream_bins=4096,
                     device=None, stats=None):
     """Full compression with the device entropy stage on `device`, or
@@ -229,11 +169,14 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
 
     substream_bins > 0 (or "auto") selects the lane-parallel estimator-free
     coder: the recorded exact per-bin probabilities drive a bare range
-    coder, one sub-stream per GPU thread; a mesh shards the lane axis.
+    coder, one sub-stream per GPU thread.
 
     substream_bins=0 selects the est-on-device path: the device runs the
     adaptive model itself (counters, mixer, APM) and the range coder, one
-    trace per warp, into a v1 container; a mesh shards the traces.
+    trace per warp, into a v1 container.
+
+    A device is a mesh of one: a mesh cuts the traces into contiguous
+    shards, and each shard runs the one-device stage of its path.
 
     Output is byte-identical to codec.compress(scope=...,
     substream_bins=...), with any mesh or none.
@@ -241,32 +184,24 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
     stats (optional dict) receives the call's spans and counters, as
     device_compress_corpus's (spans.KEYS): on either path the extraction
     (extract_*, gop_*, bins, trace_bytes), the container (serialise_s) and
-    the traces' release; on the lane path with one device the pack into a
-    group (pack_s), dispatch_s and upload_s, the read-back (collect_s) and
-    the envelopes; on the est path with one device each group's records
-    and slot tables (est_pack_s), wait for the est kernel before
-    (est_wait_s), upload and unpack (est_upload_s), launch with its range
-    check's read-back (est_launch_s), read-back (est_collect_s) and host
-    finalize (est_finalize_s), and the groups coded (est_launches), traces
+    the traces' release; on the lane path the pack into a group (pack_s),
+    dispatch_s and upload_s, the read-back (collect_s) and the envelopes;
+    on the est path each group's records and slot tables (est_pack_s),
+    wait for the est kernel before (est_wait_s), upload and unpack
+    (est_upload_s), launch with its range check's read-back
+    (est_launch_s), read-back (est_collect_s) and host finalize
+    (est_finalize_s), and the groups coded (est_launches), traces
     (est_traces), padded bins (est_padded_bins) and stream bytes out
-    (est_stored).  Under a mesh the device stage times only its read-back
-    (collect_s on the lane path; est_collect_s and est_finalize_s on the
-    est path) and counts nothing."""
-    if mesh is not None and device is not None:
-        raise ValueError("give mesh or device, not both")
-    if mesh is not None:
-        mesh = check_mesh(mesh)
-    else:
-        dev = resolve_device(device)
+    (est_stored); every shard of a mesh adds its own."""
+    mesh = as_mesh(device, mesh)
     data = bytes(data)
     if scope is None:
         scope = "gop" if native.available() else "slice"
     with call("device_compress", stats, index=0):
-        return _device_compress(data, mesh, scope, substream_bins,
-                                None if mesh is not None else dev)
+        return _device_compress(data, mesh, scope, substream_bins)
 
 
-def _device_compress(data, mesh, scope, substream_bins, dev):
+def _device_compress(data, mesh, scope, substream_bins):
     # the lane coder reads only (bit, p1): the lane form in the gop scope,
     # no slot remap in the slice scope; only the est path (substream_bins=0)
     # reads the slots
@@ -277,15 +212,9 @@ def _device_compress(data, mesh, scope, substream_bins, dev):
     if not traces:
         return compress(data, scope=scope, substream_bins=substream_bins)
     if substream_bins:
-        if mesh is not None:
-            streams = encode_traces_lanes(
-                traces, substream_bins, encode_fn=_mesh_lane_encoder(mesh))
-        else:
-            streams = encode_traces_lanes(traces, substream_bins, device=dev)
-    elif mesh is not None:
-        streams = _mesh_est_streams(traces, mesh)
+        streams = encode_traces_lanes(traces, substream_bins, mesh=mesh)
     else:
-        streams = encode_traces_est(traces, device=dev)
+        streams = encode_traces_est(traces, mesh=mesh)
     scope_id = SCOPE_SLICE if scope == "slice" else SCOPE_GOP
     out = _serialize(scope_id, sps, pps, blocks, traces, streams,
                      substream_bins)

@@ -102,9 +102,12 @@ Phases; any failure raises and the script exits non-zero:
              equal to the call without a mesh and to codec.compress,
              roundtripping; the est path with n = 4 on two clips equal to
              native.compress; sharded decode_streams_lanes equal to the
-             unsharded call; every non-empty shard launched its kernel
-             once (lane_encode_streams_idx on the lane path).  Then phase 5's [8192, 16384] group through the mesh
-             encoder with n = 4: streams equal to the single launch's, the
+             unsharded call; the mesh cuts traces, and every non-empty
+             shard launched its kernel once (lane_encode_streams_idx on
+             the lane path; est_encode and est_unpack on the est path).
+             Then phase 5's [8192, 16384] group as numpy rows cut over
+             the mesh's shard loop (run_sharded), each shard through a
+             LaneBatcher, with n = 4: streams equal to the single launch's, the
              whole call on the host clock and the kernels by CUDA events
              beside the unsharded call's, and dispatch and drain of both.
              Where the machine has more than one card, also make_mesh()
@@ -1568,9 +1571,10 @@ def nonempty_shards(n_rows, n):
 def phase_mesh_main_path(dev, clips):
     """device_compress(mesh=...) with several shards on card 0, both paths,
     and the sharded decode; returns the launches of lane_encode_streams_idx
-    (the index form, which native traces take), est_encode and lane_decode
-    in the meshed calls."""
-    counts = [0, 0, 0]  # launches of the meshed calls alone
+    (the index form, which native traces take), est_encode, lane_decode
+    and est_unpack in the meshed calls.  The mesh cuts traces: one group a
+    non-empty shard, each shard's lanes far under a group's rows."""
+    counts = [0, 0, 0, 0]  # launches of the meshed calls alone
     B = MESH_B
     for clip in clips:
         data = open(os.path.join(ROOT, "data", clip), "rb").read()
@@ -1580,6 +1584,8 @@ def phase_mesh_main_path(dev, clips):
             raise AssertionError(f"{clip}: port != codec.compress")
         traces = extract_traces(data, scope="gop", want_slots=False)[3]
         L = tlc.pack_lanes(traces, B)[0].shape[0]
+        if L > tlc.GROUP_ROWS:
+            raise AssertionError(f"{clip}: {L} lanes, more than a group")
         for n in MESH_SHARDS:
             before = tlc.lane_encode_streams_idx.launches
             t0 = time.time()
@@ -1592,11 +1598,13 @@ def phase_mesh_main_path(dev, clips):
                 raise AssertionError(f"{clip} n={n}: mesh != no mesh")
             if native.decompress(out, 0) != data:
                 raise AssertionError(f"{clip} n={n}: does not roundtrip")
-            if grew != nonempty_shards(L, n):
+            if grew != nonempty_shards(len(traces), n):
                 raise AssertionError(
                     f"{clip} n={n}: {grew} launches for "
-                    f"{nonempty_shards(L, n)} non-empty shards of {L} lanes")
-            log(f"mesh {clip} n={n}: {L} lanes, {grew} launches, equal to "
+                    f"{nonempty_shards(len(traces), n)} non-empty shards of "
+                    f"{len(traces)} traces")
+            log(f"mesh {clip} n={n}: {len(traces)} traces, {L} lanes, "
+                f"{grew} launches, equal to "
                 f"the call without a mesh and to codec.compress, roundtrips "
                 f"(device_compress {dt * 1e3:.1f} ms)")
     n = MESH_FULL
@@ -1604,12 +1612,17 @@ def phase_mesh_main_path(dev, clips):
         data = open(os.path.join(ROOT, "data", clip), "rb").read()
         n_traces = len(extract_traces(data, scope=scope)[3])
         before = tec.est_encode.launches
+        unpacked = tec.est_unpack.launches
         t0 = time.time()
         out = device_compress(data, mesh=make_mesh(n, device=dev),
                               scope=scope, substream_bins=0)
         dt = time.time() - t0
         grew = tec.est_encode.launches - before
         counts[1] += grew
+        counts[3] += tec.est_unpack.launches - unpacked
+        if tec.est_unpack.launches - unpacked != grew:
+            raise AssertionError(f"{clip} {scope}: est_unpack launches != "
+                                 f"est_encode launches under the mesh")
         if out != native.compress(data, scope=scope):
             raise AssertionError(f"{clip} {scope}: est mesh != native")
         if grew != nonempty_shards(n_traces, n):
@@ -1640,47 +1653,55 @@ def phase_mesh_main_path(dev, clips):
         log(f"mesh decode n={n}: {len(lens)} lanes, {grew} launches, equal "
             f"to the unsharded call and to the input bits")
     log(f"mesh main path: lane_encode_streams_idx.launches={counts[0]} "
-        f"est_encode.launches={counts[1]} lane_decode.launches={counts[2]}")
+        f"est_encode.launches={counts[1]} lane_decode.launches={counts[2]} "
+        f"est_unpack.launches={counts[3]}")
     if min(counts) <= 0:
         raise AssertionError("a mesh path never launched its kernel")
     return counts
 
 
-def staged_ms(dev, shards, streams_cuda):
-    """The lane path in its two phases on the given row shards (one: the
-    unsharded call), the device idle between them: ms of dispatch (upload
-    + launch, every shard) and of the drain (read-back + slicing, every
-    shard), and the stream bytes."""
+def mesh_rows(mesh, p1, bitw, lens, collect=tlc.lane_collect):
+    """Numpy lane rows cut over `mesh` by its shard loop (run_sharded),
+    each shard through a LaneBatcher of its own, read back by `collect`:
+    every lane's stream bytes."""
 
-    def timed(fn):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize(dev)
-        return res, (time.perf_counter() - t0) * 1e3
+    def dispatch(lo, hi, d):
+        bat = tlc.LaneBatcher(d)
+        bat.add(p1[lo:hi], bitw[lo:hi], lens[lo:hi])
+        return bat.dispatch()
 
-    def each(fn, items):
-        out = []
-        for stream, item in zip(streams_cuda, items):
-            with tmesh.on_shard(stream):
-                out.append(fn(item))
-        return out
+    parts = tmesh.run_sharded(len(lens), mesh, dispatch, collect)
+    return [s for p in parts for s in p]
 
-    pending, t_launch = timed(lambda: each(
-        lambda rows: tlc.lane_dispatch_compact(*rows, dev), shards))
-    parts, t_read = timed(lambda: each(tlc.lane_collect, pending))
-    return (t_launch, t_read), [s for p in parts for s in p]
+
+def staged_ms(dev, mesh, p1u16, bitw, lens):
+    """mesh_rows in its two phases, the device idle between them: ms of
+    dispatch (upload + launch, every shard, until the card is done) and of
+    the drain (read-back + slicing, every shard), and the stream bytes."""
+    marks = []
+
+    def collect(pending):
+        if not marks:
+            torch.cuda.synchronize(dev)
+            marks.append(time.perf_counter())
+        return tlc.lane_collect(pending)
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    streams = mesh_rows(mesh, p1u16, bitw, lens, collect)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    return ((marks[0] - t0) * 1e3, (t1 - marks[0]) * 1e3), streams
 
 
 def phase_mesh_full(dev, group, card):
-    """Phase 5's full group through the mesh encoder, beside the unsharded
-    call: whole calls on the host clock in turns, kernels by CUDA events,
-    and the stage split of both."""
+    """Phase 5's full group as numpy rows cut over a mesh (mesh_rows),
+    beside the unsharded call: whole calls on the host clock in turns,
+    kernels by CUDA events, and the stage split of both."""
     want, p1u16, bitw, lens = group
     L, B = p1u16.shape
     n = MESH_FULL
     mesh = make_mesh(n, device=dev)
-    encode = tpipe._mesh_lane_encoder(mesh)
 
     def whole(fn):
         torch.cuda.synchronize(dev)
@@ -1695,8 +1716,8 @@ def phase_mesh_full(dev, group, card):
     times = {"unsharded": [], "mesh": []}
     before = tlc.lane_encode_streams.launches
     for name, fn in (("unsharded", plain_call),
-                     ("mesh", lambda: encode(p1u16, bitw, lens))) * 2 + (
-                         ("unsharded", plain_call),):
+                     ("mesh", lambda: mesh_rows(mesh, p1u16, bitw, lens))
+                     ) * 2 + (("unsharded", plain_call),):
         streams, ms = whole(fn)
         times[name].append(ms)
         if streams != want:
@@ -1712,19 +1733,18 @@ def phase_mesh_full(dev, group, card):
     # the kernels alone: one launch, against n launches on n streams
     M = tlc.max_bytes(B)
     prob = tlc.from_numpy_problem(p1u16, bitw, lens, dev)
-    ranges = tmesh.shard_ranges(L, n)
-    shard_probs = [tuple(t[lo:hi].contiguous() for t in prob)
-                   for lo, hi in ranges]
-    cuda_streams = tmesh.shard_streams(mesh)
 
     def sharded_kernels():
         here = torch.cuda.current_stream(dev)
-        for s, sp in zip(cuda_streams, shard_probs):
-            s.wait_stream(here)
-            with torch.cuda.stream(s):
-                tlc.lane_encode_streams(*sp, M)
-        for s in cuda_streams:
-            here.wait_stream(s)
+
+        def launch(lo, hi, d):
+            torch.cuda.current_stream(d).wait_stream(here)
+            tlc.lane_encode_streams(*(t[lo:hi] for t in prob), M)
+
+        def join(_):
+            here.wait_stream(torch.cuda.current_stream(dev))
+
+        tmesh.run_sharded(L, mesh, launch, join)
 
     sharded_kernels()  # warm-up
     one = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
@@ -1732,11 +1752,10 @@ def phase_mesh_full(dev, group, card):
     one2 = cuda_ms(lambda: tlc.lane_encode_streams(*prob, M), 5)
     log(f"mesh full group lane_encode_streams on {card}: one launch {one:.3f} / "
         f"{one2:.3f} ms, {n} launches on {n} streams {many:.3f} ms")
-    del prob, shard_probs
+    del prob
 
-    rows = [(p1u16[lo:hi], bitw[lo:hi], lens[lo:hi]) for lo, hi in ranges]
-    split_one, s1 = staged_ms(dev, [(p1u16, bitw, lens)], [None])
-    split_n, s2 = staged_ms(dev, rows, cuda_streams)
+    split_one, s1 = staged_ms(dev, (dev,), p1u16, bitw, lens)
+    split_n, s2 = staged_ms(dev, mesh, p1u16, bitw, lens)
     if s1 != want or s2 != want:
         raise AssertionError("full group: the staged streams differ")
     for name, sp in (("unsharded", split_one), (f"mesh n={n}", split_n)):
@@ -1746,8 +1765,7 @@ def phase_mesh_full(dev, group, card):
 
     if torch.cuda.device_count() > 1:
         cards = make_mesh()
-        streams, ms = whole(lambda: tpipe._mesh_lane_encoder(cards)(
-            p1u16, bitw, lens))
+        streams, ms = whole(lambda: mesh_rows(cards, p1u16, bitw, lens))
         if streams != want:
             raise AssertionError("full group over the distinct cards differs")
         log(f"mesh full group over {len(cards)} distinct cards: streams "
@@ -2152,7 +2170,8 @@ def main():
     clock.mark("9-11 decode direction")
 
     # 12 the mesh: one process, several shards on the card
-    mesh_lane, mesh_est, mesh_dec = phase_mesh_main_path(dev, CLIPS)
+    mesh_lane, mesh_est, mesh_dec, mesh_unpack = phase_mesh_main_path(
+        dev, CLIPS)
     phase_mesh_full(dev, full_group, card)
     del full_group
     clock.mark("12 mesh")
@@ -2186,7 +2205,8 @@ def main():
     est_paths = {"device_compress": est_launches, "mesh": mesh_est,
                  "multichip_step": rank_est}
     dec_paths = {"device_decompress": dec_launches, "mesh": mesh_dec}
-    est_unpack_paths = {"device_compress": unpack_launches}
+    est_unpack_paths = {"device_compress": unpack_launches,
+                        "mesh": mesh_unpack}
     for name, paths in (("lane_encode", lane_paths), ("est_encode", est_paths),
                         ("lane_decode", dec_paths),
                         ("lane_encode_streams", stream_paths),

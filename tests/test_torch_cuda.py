@@ -179,10 +179,11 @@ def test_main_path_launches_kernel(cuda):
 
 @pytest.mark.parametrize("ring", [1, 3])
 def test_staging_buffers_are_reused_safely(cuda, monkeypatch, ring):
-    """Three groups of different contents dispatched back to back, and two
-    more on streams of their own, all through `ring` small pinned staging
-    buffers that every upload rewrites many times: each group's streams
-    equal the CPU route's."""
+    """Three groups of different contents uploaded through _upload (the
+    staging ring that the est path's and the decoder's uploads take) and
+    launched back to back, and two more on streams of their own, all
+    through `ring` small pinned staging buffers that every upload rewrites
+    many times: each group's streams equal the CPU route's."""
     monkeypatch.setattr(tlc, "STAGE_RING", ring)
     monkeypatch.setattr(tlc, "STAGE_BYTES", 1 << 16)
     monkeypatch.setattr(tlc, "_staging", tlc._Staging())
@@ -191,14 +192,12 @@ def test_staging_buffers_are_reused_safely(cuda, monkeypatch, ring):
                                         "random"])]
     want = [tlc.lane_streams_device_compact(*g, "cpu", bits_per_byte=1)
             for g in groups]
-    pending = [tlc.lane_dispatch_compact(*g, cuda, bits_per_byte=1)
-               for g in groups[:3]]
+    pending = [_staged_dispatch(g, cuda) for g in groups[:3]]
     streams = [torch.cuda.Stream(cuda) for _ in groups[3:]]
     for g, s in zip(groups[3:], streams):
         s.wait_stream(torch.cuda.current_stream(cuda))
         with torch.cuda.stream(s):
-            pending.append(tlc.lane_dispatch_compact(*g, cuda,
-                                                     bits_per_byte=1))
+            pending.append(_staged_dispatch(g, cuda))
     assert len(tlc._staging.ring) == ring
     assert tlc._staging.turn >= 5 * (300 * 2048 * 2 >> 16)
     for k, (handles, s) in enumerate(zip(pending, [None] * 3 + streams)):
@@ -210,19 +209,33 @@ def test_staging_buffers_are_reused_safely(cuda, monkeypatch, ring):
         assert got == want[k], f"group {k}"
 
 
-def test_dispatch_does_not_wait_for_the_device(cuda, monkeypatch):
-    """No host sync between upload and launch: a dispatch whose stream is
-    held up by a long sleep kernel returns before that kernel ends."""
-    p1u16, bitw, lens = _problem("random", 64, 1024, seed=4)
-    tlc.lane_streams_device_compact(p1u16, bitw, lens, cuda)  # build, pin
+def _staged_dispatch(g, dev):
+    """One numpy lane group uploaded through _Staging (_upload) and
+    launched once (bits_per_byte 1): its pending handles, as lane_collect
+    takes them."""
+    prob = tuple(tlc._upload(a, dev) for a in g)
+    return [tlc._launch(len(g[2]), prob[2], prob, tlc.lane_bins(g[0]), 1)]
+
+
+def test_dispatch_does_not_wait_for_the_device(cuda):
+    """No host sync between pack, upload and launch on the lane main path:
+    with the ring's buffers pinned and free, dispatch_traces_lanes returns
+    while a long sleep kernel holds the stream, and its collect half gives
+    the envelopes of the whole call, which equal the CPU route's."""
+    if not native.available():
+        pytest.skip("native library not built")
+    data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
+    traces = extract_traces(data, scope="gop", want_slots=False)[3]
+    for _ in range(tlc.GROUP_RING):  # build, pin the ring's buffers
+        want = tlc.encode_traces_lanes(traces, 4096, cuda)
     torch.cuda.synchronize()
     done = torch.cuda.Event()
     torch.cuda._sleep(int(2e9))  # about a second of device time
     done.record()
-    pending = tlc.lane_dispatch_compact(p1u16, bitw, lens, cuda)
+    handle = tlc.dispatch_traces_lanes(traces, 4096, cuda)
     assert not done.query()  # the dispatch came back while the card slept
-    assert tlc.lane_collect(pending) == tlc.lane_streams_device_compact(
-        p1u16, bitw, lens, "cpu")
+    assert tlc.collect_traces_lanes(handle) == want
+    assert want == tlc.encode_traces_lanes(traces, 4096, "cpu")
 
 
 @pytest.mark.parametrize("ring", [1, 3])
@@ -469,18 +482,19 @@ def _cuda_step_rank(rank, world, device, arrays):
 @pytest.mark.parametrize("n", [1, 4, 7])
 def test_mesh_of_streams_on_one_card(cuda, n):
     """n shards on streams of card 0: the bytes of the call without a mesh,
-    one lane_encode_streams_idx launch a non-empty shard (native traces take
-    the index form); the est path and the sharded decode alike."""
+    one lane_encode_streams_idx launch a non-empty shard of traces (native
+    traces take the index form); the est path and the sharded decode
+    alike."""
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
     mesh = make_mesh(n, device="cuda:0")
     assert mesh == (torch.device("cuda", 0),) * n
     traces = extract_traces(data, scope="gop", want_slots=False)[3]
-    L = tlc.pack_lanes(traces, 4096)[0].shape[0]
+    assert len(traces) == 4  # 4 GOPs, cut over the shards
     before = tlc.lane_encode_streams_idx.launches
     out = device_compress(data, mesh=mesh, scope="gop", substream_bins=4096)
-    assert tlc.lane_encode_streams_idx.launches - before == min(n, L)
+    assert tlc.lane_encode_streams_idx.launches - before == min(n, 4)
     assert out == codec.compress(data, scope="gop", substream_bins=4096)
     before = tec.est_encode.launches
     est = device_compress(data, mesh=mesh, scope="gop", substream_bins=0)
@@ -496,6 +510,30 @@ def test_mesh_of_streams_on_one_card(cuda, n):
     assert tld.lane_decode.launches - before == n
     assert bits.device == torch.device("cuda", 0)
     np.testing.assert_array_equal(bits.cpu().numpy(), want)
+
+
+def test_mesh_est_groups_take_turns(cuda, monkeypatch):
+    """The est path over two shards on card 0, a group a trace: each shard
+    waits only for its own kernel before its next group, so the shards'
+    groups go up and launch in turns; the bytes of the call without a
+    mesh."""
+    if not native.available():
+        pytest.skip("native library not built")
+    data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
+    traces = extract_traces(data, scope="gop")[3]
+    monkeypatch.setattr(tec, "GROUP_BINS", 1)
+    want = tec.encode_traces_est(traces, cuda)
+    mesh = make_mesh(2, device="cuda:0")
+    real, log = tec._records_problem, []
+
+    def records_problem(*args):
+        log.append(torch.cuda.current_stream(cuda))
+        return real(*args)
+
+    monkeypatch.setattr(tec, "_records_problem", records_problem)
+    assert tec.encode_traces_est(traces, mesh=mesh) == want
+    # 4 GOPs, 2 a shard, each shard on a stream of its own
+    assert log[0] != log[1] and log == log[:2] * 2
 
 
 def test_two_ranks_share_the_card(cuda):

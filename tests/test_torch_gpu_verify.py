@@ -28,7 +28,7 @@ def _read(name):
 
 
 def _launcher(p1):
-    """The fused launcher that lane_dispatch_compact sends p1's form to."""
+    """The fused launcher that a dispatch group of p1's form goes to."""
     return ("lane_encode_streams_idx" if tlc.index_form(p1)
             else "lane_encode_streams")
 

@@ -234,13 +234,9 @@ def test_dispatch_handles_and_collect_on_cpu():
     bitp1, lens = _lanes("carry", 64, seed=2, L=30)
     p1u16, bitw, lens = tlc.pack_compact(bitp1, lens, pad_lanes=1)
     want = tlc.finalize_lanes(*_port_tokens(bitp1, lens), lens)
-    old = tlc.GROUP_ROWS
-    tlc.GROUP_ROWS = 8
-    try:
-        pending = tlc.lane_dispatch_compact(p1u16, bitw, lens, "cpu",
-                                            bits_per_byte=1)
-    finally:
-        tlc.GROUP_ROWS = old
+    bat = tlc.LaneBatcher("cpu", 8, bits_per_byte=1)
+    assert bat.add(p1u16, bitw, lens) == (0, 30)
+    pending = bat.dispatch()
     assert [h[0] for h in pending] == [8, 8, 8, 6]
     for n, glens, out, nbytes, total, prob in pending:
         assert out.shape == (n, tlc.max_bytes(256, 1)) and len(glens) == n
@@ -254,10 +250,11 @@ def test_dispatch_has_no_host_sync():
     buffer's event wait in _Staging._next or _GroupRing.take is a wait for
     an upload that read the buffer, taken only when the ring comes round to
     it.)"""
-    for fn in (tlc.lane_dispatch_compact, tlc.lane_encode_streams,
+    for fn in (tlc.dispatch_traces_lanes, tlc.lane_encode_streams,
                tlc._upload, tlc._Staging.upload, tlc.dispatch_group,
                tlc.upload_group, tlc._launch, tlc.LaneBatcher.add,
-               tlc.LaneBatcher.add_traces, tlc.LaneBatcher._flush):
+               tlc.LaneBatcher.add_traces, tlc.LaneBatcher._flush,
+               tlc.LaneBatcher.dispatch):
         src = inspect.getsource(fn)
         for sync in (".cpu(", ".item(", "bool(", ".tolist(", ".numpy(",
                      "synchronize("):

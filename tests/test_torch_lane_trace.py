@@ -132,7 +132,7 @@ def test_batcher_rows_equal_the_records(both, B, big, first, monkeypatch):
             bat.add_traces(_foreign("rt_ctr.mkv", first), B)
             assert not bat.group.index
         placed = bat.add_traces(traces, B)
-        bat._dispatch_rest()
+        bat.dispatch()
         got.append((placed, _dispatched(bat)))
     (want_placed, want), (placed, groups) = got
     assert placed == want_placed

@@ -79,26 +79,46 @@ def test_device_compress_mesh_matches_jax_and_host(scope):
     assert native.decompress(port) == data
 
 
-@pytest.mark.parametrize("n", [1, 3, 8, "L + 5"])
+def _filled(stats):
+    """The stats keys that a call filled (every key is there from the
+    start)."""
+    return {k for k, v in stats.items() if v}
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8, "traces + 1"])
 def test_mesh_lane_any_shard_count(n):
-    """Any shard count gives the bytes of the call without a mesh: counts
-    that do not divide the lanes, and more shards than lanes."""
+    """Any shard count gives the bytes of the call without a mesh, and
+    fills the same stats: counts that do not divide the traces, and more
+    shards than traces."""
     data = _clip()
     *_, traces, _ = tpipe.extract_traces(data, scope="gop", want_slots=False)
-    L = tlc.pack_lanes(traces, B)[0].shape[0]
-    if n == "L + 5":
-        n = L + 5
-    want = device_compress(data, scope="gop", substream_bins=B, device="cpu")
+    if n == "traces + 1":
+        n = len(traces) + 1
+    one, meshed = {}, {}
+    want = device_compress(data, scope="gop", substream_bins=B, device="cpu",
+                           stats=one)
     assert device_compress(data, mesh=make_mesh(n, device="cpu"), scope="gop",
-                           substream_bins=B) == want
+                           substream_bins=B, stats=meshed) == want
+    assert _filled(meshed) == _filled(one)
+    assert meshed["bins"] == one["bins"]
+    assert meshed["dispatches"] == min(n, len(traces))
 
 
 def test_mesh_est_matches_native():
+    """The est path over a mesh: the host codec's bytes, and the stats of
+    the call without a mesh, every shard counting its groups."""
     data = _clip()
+    one, meshed = {}, {}
     out = device_compress(data, mesh=make_mesh(2, device="cpu"), scope="slice",
-                          substream_bins=0)
+                          substream_bins=0, stats=meshed)
     assert out == native.compress(data, scope="slice")
     assert native.decompress(out) == data
+    assert device_compress(data, scope="slice", substream_bins=0,
+                           device="cpu", stats=one) == out
+    assert _filled(meshed) == _filled(one)
+    for key in ("bins", "est_traces", "est_stored"):
+        assert meshed[key] == one[key], key
+    assert (one["est_launches"], meshed["est_launches"]) == (1, 2)
 
 
 class _Trace:
@@ -126,16 +146,17 @@ def _short_traces(seed, n):
 def test_mesh_est_any_shard_count(n):
     traces = _short_traces(5, 13)
     want = tec.encode_traces_est(traces, device="cpu")
-    assert tpipe._mesh_est_streams(traces, make_mesh(n, device="cpu")) == want
+    assert tec.encode_traces_est(traces, mesh=make_mesh(n, device="cpu")) == want
 
 
 def test_mesh_and_device_together_raise():
     mesh = make_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="mesh or device"):
         device_compress(b"x", mesh=mesh, device="cpu")
-    with pytest.raises(ValueError, match="encode_fn or device"):
-        tlc.encode_traces_lanes([], 64, device="cpu",
-                                encode_fn=tpipe._mesh_lane_encoder(mesh))
+    with pytest.raises(ValueError, match="mesh or device"):
+        tlc.encode_traces_lanes([], 64, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="mesh or device"):
+        tec.encode_traces_est([], device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="mesh or device"):
         tld.decode_streams_lanes([], np.zeros((0, 4), int), [], device="cpu",
                                  mesh=mesh)
@@ -143,6 +164,27 @@ def test_mesh_and_device_together_raise():
         device_compress(b"x", mesh=())
     with pytest.raises(ValueError, match="at least one shard"):
         make_mesh(0, device="cpu")
+
+
+def test_run_sharded_takes_turns():
+    """The shard loop runs a dispatch that yields (between its groups) a
+    step a shard in turns, so that no shard's wait holds back another's
+    dispatch, and collects every shard in order; a plain dispatch runs
+    once, and no items still make one empty shard on the first device."""
+    log = []
+
+    def dispatch(lo, hi, dev):
+        for i in range(lo, hi):
+            log.append(i)
+            yield
+        return lo, hi
+
+    mesh = make_mesh(3, device="cpu")
+    assert tmesh.run_sharded(7, mesh, dispatch, list) == [[0, 3], [3, 6],
+                                                          [6, 7]]
+    assert log == [0, 3, 6, 1, 4, 2, 5]
+    assert tmesh.run_sharded(0, mesh, lambda lo, hi, dev: (dev, lo, hi),
+                             list) == [[torch.device("cpu"), 0, 0]]
 
 
 def test_make_mesh_and_shard_ranges(monkeypatch):

@@ -299,18 +299,18 @@ def test_device_compress_over_several_groups(monkeypatch):
 
 @pytest.mark.parametrize("foreign", [False, True])
 def test_numpy_rows_dispatch_in_groups(monkeypatch, foreign):
-    """lane_dispatch_compact, the numpy signature that the mesh encoder and
-    the tools keep, uploads its rows through _upload (no group buffer) in
-    groups of GROUP_ROWS: with groups of 16 rows, in either form, the
-    streams equal the one-group call's and the handles hold the rows
-    given."""
+    """Numpy rows, as lane_streams_device_compact and the tools hand them
+    in, go up through a LaneBatcher's group buffers (add) in groups of
+    GROUP_ROWS: with groups of 16 rows, in either form, the streams equal
+    the one-group call's and the handles hold the rows given."""
     tr = _cut("rt_ctr.mkv", [1280, 700, 5000], foreign)
     p1, bitw, lens, _ = tlc.pack_lanes(tr, B)
     assert tlc.index_form(p1) != foreign
     want = tlc.lane_streams_device_compact(p1, bitw, lens, "cpu")
     monkeypatch.setattr(tlc, "GROUP_ROWS", 16)
-    monkeypatch.setattr(tlc, "_groups", None)  # no group buffer is taken
-    pending = tlc.lane_dispatch_compact(p1, bitw, lens, "cpu")
+    bat = tlc.LaneBatcher("cpu")
+    assert bat.add(p1, bitw, lens) == (0, 27)
+    pending = bat.dispatch()
     assert [h[0] for h in pending] == [16, 11]
     got = _dispatched_rows(pending)
     np.testing.assert_array_equal(np.stack([r[0] for r in got]), p1)
