@@ -19,7 +19,8 @@ RecodeModel coder.
 
 The TPU module's GROUP = 16 and its power-of-two rounding of T and NS are
 VMEM and compile-shape workarounds and have no counterpart here: groups are
-cut by a bins budget, each padded to its own longest trace.
+cut by a padded-bins budget (on a card its free memory, card_group_bins),
+each padded to its own longest trace.
 """
 
 import functools
@@ -34,7 +35,7 @@ from .estimator import (APM_CELLS, APM_HIST, HALVE_FAST, N_CLS, est_tables,
                         finalize_streams, model_probs, range_encode)
 from .lane_coder import _upload
 
-GROUP_BINS = 1 << 27  # rows x T per launch, as the lane path's group
+GROUP_BINS = 1 << 27  # rows x T a launch on the CPU, as the lane path's group
 # keeps the counters' << 16 inside int32 on the card, and a counter inside
 # the 15 bits the kernel's packed estimator row gives it
 MAX_LIMIT = 0x7FFF
@@ -55,6 +56,46 @@ def rows_bytes(NS):
     """Bytes of one trace's NS packed estimator rows (8 bytes each),
     rounded up to 16."""
     return -(-NS * 8 // 16) * 16
+
+
+# The card's bytes a padded bin of a group costs, from the stage's own
+# allocations: its 8-byte record (freed after est_unpack), the four int32
+# rows est_unpack writes (16), est_encode's int32 tok and car, each
+# [S, 2T + 2] (16), and the one-byte masks of _check_problem's range check,
+# at most 4 alive at once (4).  The records are gone before tok and car are
+# made, so the sum bounds the stage's peak from above.
+EST_BIN_BYTES = 8 + 16 + 16 + 4
+
+
+def card_group_bins(dev):
+    """The padded bins the next group may hold on card `dev`: half of its
+    free memory over EST_BIN_BYTES.  Free is what the driver reports free
+    plus what the caching allocator holds reserved but unallocated; the
+    other half is left to the allocator's fragmentation.  Read as each
+    group is cut, it leaves out what the groups launched before hold until
+    the collect (their tok and car), this shard's and the other shards' on
+    the card."""
+    free = torch.cuda.mem_get_info(dev)[0]
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return free // 2 // EST_BIN_BYTES
+
+
+def cut_groups(lengths, budget):
+    """Trace indices cut into groups, shortest trace first (traces of one
+    length in their order), a group a step: each group calls budget() for
+    its padded bins as it is cut, so a caller that launches a group before
+    it asks for the next one has that group's memory taken off; a group
+    takes the next trace while (traces + 1) x that trace's length stays
+    within it, and a trace past the budget is a group alone."""
+    order = sorted(range(len(lengths)), key=lengths.__getitem__)
+    lo = 0
+    while lo < len(order):
+        cap, hi = budget(), lo + 1
+        while hi < len(order) and \
+                (hi - lo + 1) * max(lengths[order[hi]], 1) <= cap:
+            hi += 1
+        yield order[lo:hi]
+        lo = hi
 
 
 def est_launch_plan(NS):
@@ -357,10 +398,12 @@ def encode_traces_est(traces, device=None, mesh=None):
     """Device entropy stage for substream_bins=0: traces -> per-trace
     stream bytes, byte-identical to RecodeModel(...).finish().
 
-    Traces are sorted by length and cut into groups of at most GROUP_BINS
-    padded bins, each padded to its own longest trace and slot table.  A
-    group goes to the device as its traces' records (trace_records), 8
-    bytes a bin, and its slot tables; est_unpack derives its rows there.
+    Traces are sorted by length and cut into groups (cut_groups) of at most
+    card_group_bins padded bins on a card, read as each group is cut,
+    GROUP_BINS on the CPU, each padded to its own longest trace and slot
+    table.  A group goes to the
+    device as its traces' records (trace_records), 8 bytes a bin, and its
+    slot tables; est_unpack derives its rows there.
     Every group is launched before any is read back; the read-back is cut
     to the group's longest token segment.
 
@@ -369,9 +412,10 @@ def encode_traces_est(traces, device=None, mesh=None):
     est kernel before (whose stream and staging buffers the uploads share)
     est_wait, its uploads and unpack est_upload and est_encode (with its
     range check's read-back) est_launch (est_collect adds est_collect and
-    est_finalize); the groups (stats "est_launches"), traces
-    ("est_traces"), padded bins S x T ("est_padded_bins") and stream bytes
-    out ("est_stored") are counted.
+    est_finalize); the groups (stats "est_launches"), the groups closed
+    because the card's budget was reached ("est_memory_cuts", 0 on the
+    CPU), traces ("est_traces"), padded bins S x T ("est_padded_bins") and
+    stream bytes out ("est_stored") are counted.
 
     mesh (parallel/mesh.make_mesh; not together with device; a device is a
     mesh of one) cuts the traces into contiguous shards (mesh.run_sharded),
@@ -387,21 +431,20 @@ def encode_traces_est(traces, device=None, mesh=None):
 
 
 def _dispatch_est(traces, dev):
-    """A shard's groups packed, uploaded, unpacked and launched on `dev`,
-    yielding before each wait for its est kernel (run_sharded's turns).
+    """A shard's groups cut (cut_groups), packed, uploaded, unpacked and
+    launched on `dev`, one after another; on a card each group's budget is
+    card_group_bins, read after the group before it was launched, and the
+    dispatch yields after each launch (run_sharded's turns), so that the
+    other shards on the card launch theirs before its next group is cut.
     Returns (number of traces, pending (group's trace indices, est_encode
     result) pairs)."""
-    order = sorted(range(len(traces)), key=lambda i: len(traces[i]))
-    groups, grp = [], []
-    for i in order:
-        if grp and (len(grp) + 1) * max(len(traces[i]), 1) > GROUP_BINS:
-            groups.append(grp)
-            grp = []
-        grp.append(i)
-    if grp:
-        groups.append(grp)
+    cuda = dev.type == "cuda"
+    budget = functools.partial(card_group_bins, dev) if cuda else \
+        (lambda: GROUP_BINS)
     pending = []
-    for grp in groups:
+    for grp in cut_groups([len(t) for t in traces], budget):
+        if pending and cuda:
+            spans.count("est_memory_cuts")  # the budget closed the last
         ts = [traces[i] for i in grp]
         S = len(ts)
         T = max(max(len(t) for t in ts), 1)
@@ -409,8 +452,7 @@ def _dispatch_est(traces, dev):
         with spans.span("est_pack"):
             recs = [trace_records(t) for t in ts]
             tables = slot_tables(ts, S, NS)
-        if pending and dev.type == "cuda":
-            yield
+        if pending and cuda:
             with spans.span("est_wait"):
                 torch.cuda.current_stream(dev).synchronize()
         with spans.span("est_upload"):
@@ -418,9 +460,12 @@ def _dispatch_est(traces, dev):
         del recs, tables
         with spans.span("est_launch"):
             pending.append((grp, est_encode(*prob)))
+        del prob  # the rows go back to the allocator before the next cut
         spans.count("est_launches")
         spans.count("est_traces", S)
         spans.count("est_padded_bins", S * T)
+        if cuda:
+            yield
     return len(traces), pending
 
 

@@ -115,7 +115,7 @@ def run_sharded(n_items, mesh, dispatch, collect):
     current stream, as a call without a mesh would.
 
     A dispatch that waits for its own device between groups is a
-    generator: it yields before each such wait and returns its handle.
+    generator: it yields between its groups and returns its handle.
     The shards' generators are run in turns, a group each, so that one
     shard's wait holds back no other shard's dispatch."""
     streams = [None] if len(mesh) == 1 else shard_streams(mesh)

@@ -190,9 +190,10 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
     wait for the est kernel before (est_wait_s), upload and unpack
     (est_upload_s), launch with its range check's read-back
     (est_launch_s), read-back (est_collect_s) and host finalize
-    (est_finalize_s), and the groups coded (est_launches), traces
-    (est_traces), padded bins (est_padded_bins) and stream bytes out
-    (est_stored); every shard of a mesh adds its own."""
+    (est_finalize_s), and the groups coded (est_launches), the groups
+    closed by the card's budget (est_memory_cuts), traces (est_traces),
+    padded bins (est_padded_bins) and stream bytes out (est_stored); every
+    shard of a mesh adds its own."""
     mesh = as_mesh(device, mesh)
     data = bytes(data)
     if scope is None:

@@ -76,7 +76,8 @@ Phases; any failure raises and the script exits non-zero:
              the kernel alone on the longest gop trace
              and on the longest slice trace replicated 1, 128 and 1,024 times;
              then the archive cell's est group (the benchmark's four camera
-             GOPs at gop scope, repeated to 18 GOP-long traces, [18, ~7.4M]):
+             GOPs at gop scope, repeated to the 48 GOP-long traces of its
+             longest recording, [48, ~7.4M]):
              est_unpack's rows equal to pack_rows' and to est_unpack_plain's,
              exactly, and its launch alone (pointer table and rows made
              before) timed with CUDA events beside its bound
@@ -173,7 +174,7 @@ CLIPS = ["rt_ctr.mkv", "mbaff_b.mkv", "rt_ctr.ts", "rt_ctr.avi",
          "rt_ctr.flv", "rt_ctr.mpg"]
 FULL_L, FULL_B = 8192, 16384  # one full dispatch group at the bench's B
 EST_S = 1024  # traces of the phase-8 est problem
-ARCHIVE_S = 18  # GOP-long traces of the archive cell's est group
+ARCHIVE_S = 48  # GOP-long traces of the archive cell's longest recording
 EST_SCALING = (1, 128, 1024)  # copies of one trace, kernel alone
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet): memory
 # rate, and integer operations at half the 67 TFLOP/s float32 rate (an SM
@@ -1285,7 +1286,9 @@ def phase_est_full(dev, clips, S, card):
 def archive_group(S=ARCHIVE_S):
     """The archive cell's est group: the benchmark's four camera GOPs
     extracted at gop scope (native traces with slot tables), repeated to S
-    GOP-long traces, the group that GROUP_BINS cuts from its recordings."""
+    GOP-long traces: 48 by default, the cell's longest recording, which
+    the est stage codes as one group on the card (est_coder.card_group_bins
+    budgets a group by the card's free memory)."""
     traces = []
     for i in range(1, 5):
         path = os.path.join(ROOT, "benchmark", "clips", "camera",

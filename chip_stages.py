@@ -71,18 +71,19 @@ The parts, all of them by default, in this order:
              mbaff_b.mkv at gop scope, v2 (B = 4096) and v1: host model
              pass, pack, upload, kernel, read-back, split, host assembly
   unpack     the archive cell's est group (chip_smoke.archive_group: the
-             benchmark's four camera GOPs at gop scope, repeated to 18
+             benchmark's four camera GOPs at gop scope, repeated to 48
              GOP-long traces), brought to the card both ways, pack_rows and
              its upload against the slot tables, the records' upload and
              est_unpack (each stage and _records_problem whole), equal
              rows; then est_unpack's launch alone by CUDA events beside
              its bound and its plain version on the card
-  archive    the archive cell's longest recording: the four camera GOPs
-             repeated to ARCHIVE_GOPS, device_compress(scope="gop",
+  archive    the archive cell's recordings: the four camera GOPs
+             repeated to each of ARCHIVE_GOPS, device_compress(scope="gop",
              substream_bins=0) once warm and ARCHIVE_RUNS times with
              stats, each run's wall, its est stage by the program's spans
-             and counters (those the tree has), its peak RSS and device
-             peak; every container equal to the first
+             and counters (those the tree has), the est kernel's launches,
+             traces a launch and groups cut by the card's memory, its peak
+             RSS and device peak; every container equal to the first
 """
 
 import os
@@ -108,11 +109,12 @@ from chip_smoke import (
     group_ring_bytes, lane_stage_split, log, tiled_problem, tiled_trace)
 
 RUNS = 3
-ARCHIVE_GOPS = 48  # GOPs of the `archive` part's recording
-ARCHIVE_RUNS = 3
+ARCHIVE_GOPS = (24, 48, 32, 40)  # the archive cell's recordings, in GOPs
+ARCHIVE_RUNS = 2
 EST_KEYS = ("extract_s", "est_pack_s", "est_upload_s", "est_launch_s",
             "est_collect_s", "est_finalize_s", "est_wait_s", "serialise_s",
-            "est_launches", "est_padded_bins", "bins")
+            "est_launches", "est_traces", "est_memory_cuts",
+            "est_padded_bins", "bins")
 CORPUS_BS = (16384, 4096)  # the corpus split's B: the bench's, and ~8 groups
 WINDOWS = (1, 2, 4, 8, 16)  # extraction windows of the `window` part
 GOP_THREADS = (0, 1)  # an extraction's GOP threads in the `window` part
@@ -894,7 +896,12 @@ def archive_split(dev):
                             f"cam_gop{i}.264")
         with open(path, "rb") as f:
             gops.append(f.read())
-    data = b"".join(gops[i % len(gops)] for i in range(ARCHIVE_GOPS))
+    for n_gops in ARCHIVE_GOPS:
+        archive_recording(dev, b"".join(gops[i % len(gops)]
+                                        for i in range(n_gops)), n_gops)
+
+
+def archive_recording(dev, data, n_gops):
     want = pipeline.device_compress(data, scope="gop", substream_bins=0,
                                     device=dev)
     for _ in range(ARCHIVE_RUNS):
@@ -911,7 +918,10 @@ def archive_split(dev):
         split = ", ".join(f"{k} {stats[k]:.3f}" if isinstance(stats[k], float)
                           else f"{k} {stats[k]}" for k in EST_KEYS
                           if k in stats)
-        log(f"archive recording ({ARCHIVE_GOPS} GOPs, {len(data)} bytes -> "
+        if stats.get("est_launches"):
+            split += (", est_traces / est_launches "
+                      f"{stats['est_traces'] / stats['est_launches']:.1f}")
+        log(f"archive recording ({n_gops} GOPs, {len(data)} bytes -> "
             f"{len(out)}) on {card_line()}: {wall:.3f} s wall; {split}; peak "
             f"RSS {rss.peak / 1e6:.0f} MB ({rss.before / 1e6:.0f} before), "
             f"device peak {torch.cuda.max_memory_allocated(dev)} B")

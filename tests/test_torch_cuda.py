@@ -382,7 +382,7 @@ def test_est_record_groups_behind_running_kernels(cuda, monkeypatch):
     if not native.available():
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
-    monkeypatch.setattr(tec, "GROUP_BINS", 1 << 15)
+    monkeypatch.setattr(tec, "card_group_bins", lambda dev: 1 << 15)
     unpacks = tec.est_unpack.launches
     stats = {}
     out = device_compress(data, scope="slice", substream_bins=0, device=cuda,
@@ -390,6 +390,53 @@ def test_est_record_groups_behind_running_kernels(cuda, monkeypatch):
     assert tec.est_unpack.launches - unpacks == stats["est_launches"] > 2
     assert stats["est_wait_s"] > 0  # each group after the first waited
     assert out == native.compress(data, scope="slice")
+
+
+@pytest.mark.parametrize("free", ["card", "small"])
+def test_est_recording_groups_by_free_memory(cuda, monkeypatch, free):
+    """A recording of four GOP-long traces at gop scope: with the card's
+    free memory one group, one est_unpack and one est_encode launch and no
+    wait.  On a card faked small, whose free memory is what the call
+    allocates taken off a fixed size, each group reads what the groups
+    launched before still hold: the two shortest GOPs go first, then the
+    next two each alone, where a budget read once would have put them
+    together; each group after the first waits for the kernel before, and
+    the call never holds more than the small card.  Either way the host
+    codec's container."""
+    if not native.available():
+        pytest.skip("native library not built")
+    data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
+    traces = extract_traces(data, scope="gop")[3]
+    assert len(traces) == 4
+    if free == "small":
+        # the budget read first holds two of the longest GOP and 10,000
+        # bins more; the first group's tok and car, 16 B a padded bin of
+        # its two GOPs of ~57 K bins, take ~20 K bins of budget off
+        lengths = sorted(map(len, traces))
+        assert 2 * lengths[1] <= 2 * lengths[3] + 10_000 < 3 * lengths[2]
+        size = 2 * tec.EST_BIN_BYTES * (2 * lengths[3] + 10_000)
+        device_compress(data, scope="gop", substream_bins=0, device=cuda)
+        allocated = torch.cuda.memory_allocated
+        base = allocated(cuda)
+        monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (
+            size - (allocated(dev) - base), 80 << 30))
+        monkeypatch.setattr(torch.cuda, "memory_reserved", allocated)
+        torch.cuda.reset_peak_memory_stats(cuda)
+    encodes, unpacks = tec.est_encode.launches, tec.est_unpack.launches
+    stats = {}
+    out = device_compress(data, scope="gop", substream_bins=0, device=cuda,
+                          stats=stats)
+    assert out == native.compress(data, scope="gop")
+    launches = stats["est_launches"]
+    assert tec.est_encode.launches - encodes == launches
+    assert tec.est_unpack.launches - unpacks == launches
+    assert stats["est_traces"] == 4
+    assert stats["est_memory_cuts"] == launches - 1
+    if free == "card":
+        assert launches == 1 and stats["est_wait_s"] == 0
+    else:
+        assert launches == 3 and stats["est_wait_s"] > 0
+        assert torch.cuda.max_memory_allocated(cuda) - base <= size
 
 
 # encoder output of every kind and arbitrary bytes ("bytes": streams of 0-3
@@ -521,7 +568,7 @@ def test_mesh_est_groups_take_turns(cuda, monkeypatch):
         pytest.skip("native library not built")
     data = open(os.path.join(DATA, "mbaff_b.mkv"), "rb").read()
     traces = extract_traces(data, scope="gop")[3]
-    monkeypatch.setattr(tec, "GROUP_BINS", 1)
+    monkeypatch.setattr(tec, "card_group_bins", lambda dev: 1)
     want = tec.encode_traces_est(traces, cuda)
     mesh = make_mesh(2, device="cuda:0")
     real, log = tec._records_problem, []

@@ -27,7 +27,8 @@ GOPS = [os.path.join(ROOT, "benchmark", "tests", "data", f"gop{i}.264")
         for i in (1, 2, 3)]
 EST_SPANS = ("est_pack_s", "est_upload_s", "est_launch_s", "est_collect_s",
              "est_finalize_s")
-EST_COUNTS = ("est_launches", "est_traces", "est_padded_bins", "est_stored")
+EST_COUNTS = ("est_launches", "est_traces", "est_padded_bins", "est_stored",
+              "est_memory_cuts")
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +83,7 @@ def test_est_counters_pin_the_traces_and_streams(est_call):
     assert stats["est_traces"] == len(traces)
     # three traces of ~28K bins fill one group of GROUP_BINS
     assert len(traces) * max(map(len, traces)) <= est_coder.GROUP_BINS
-    assert stats["est_launches"] == 1
+    assert stats["est_launches"] == 1 and stats["est_memory_cuts"] == 0
     assert stats["est_wait_s"] == 0  # one group: no kernel before to wait for
     # the group went as its traces' records: no trace's slots, bits or
     # pcabs cached on the host

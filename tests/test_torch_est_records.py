@@ -7,9 +7,13 @@ route is est_unpack_plain); nothing packs rows on the host.
 The unpack must give pack_rows' rows bit for bit; encode_traces_est must
 give the host model coder's streams on either extractor's traces, without
 pack_rows, and leave NativeTrace's cached slots, bits and pcabs unfilled.
+Groups are cut by a padded-bins budget (cut_groups), on a card half its
+free memory over the bytes a padded bin costs (card_group_bins), read as
+each group is cut.
 The plain est loop steps through each group's longest trace: traces stay
 a few hundred to 1,500 bins, ~10 s in all."""
 
+import functools
 import os
 import random
 
@@ -190,10 +194,90 @@ def test_groups_of_either_form_give_the_host_streams(form, monkeypatch):
         streams = tec.encode_traces_est(traces, device="cpu")
     assert streams == [_host_stream(t) for t in traces]
     assert stats["est_launches"] >= 3 and stats["est_traces"] == len(traces)
+    assert stats["est_memory_cuts"] == 0  # GROUP_BINS cut them, no card
     assert stats["est_wait_s"] == 0  # the CPU route waits for no kernel
     # the records as they are: no native trace's fields cached
     assert all(t._slots is None and t._bits is None and t._pcabs is None
                for t in traces if isinstance(t, native.NativeTrace))
+
+
+GOP_BINS = 7_410_000  # a GOP-long trace of the archive cell
+# (lengths, padded-bins budget, groups of trace indices)
+CUTS = {
+    "one_group": ([GOP_BINS] * 48, 48 * GOP_BINS, [list(range(48))]),
+    "fixed_2_27": ([GOP_BINS] * 48, 1 << 27,
+                   [list(range(18)), list(range(18, 36)),
+                    list(range(36, 48))]),
+    "a_trace_each": ([5, 0, 3, 3], 1, [[1], [2], [3], [0]]),
+    "shortest_first": ([900, 1, 300, 300, 50], 700, [[1, 4], [2, 3], [0]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CUTS))
+def test_groups_are_cut_by_a_padded_bins_budget(case):
+    lengths, budget, groups = CUTS[case]
+    assert list(tec.cut_groups(lengths, lambda: budget)) == groups
+
+
+def _fill_card(monkeypatch, lengths, size, once):
+    """Groups cut from a fake card of `size` bytes that fills as they are
+    launched: each launched group holds its tok and car, 16 B a padded
+    bin, until the collect, and the card's free memory is what they leave.
+    The budget is card_group_bins, read as each group is cut or, if
+    `once`, once before the first.  -> (groups, each group's peak: what
+    the groups before hold and EST_BIN_BYTES a padded bin of its own)."""
+    held = [0]
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (size - held[0], size))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 0)
+    read = functools.partial(tec.card_group_bins, torch.device("cuda", 0))
+    if once:
+        first = read()
+        read = lambda: first  # noqa: E731
+    groups, peaks = [], []
+    for grp in tec.cut_groups(lengths, read):
+        bins = len(grp) * max(lengths[i] for i in grp)
+        peaks.append(held[0] + tec.EST_BIN_BYTES * bins)
+        held[0] += 16 * bins
+        groups.append(grp)
+    return groups, peaks
+
+
+def test_card_budget_leaves_out_the_groups_launched_before(monkeypatch):
+    """100 GOP-long traces on a card of 40 traces' EST_BIN_BYTES: the
+    budget, read as each group is cut, shrinks as the launched groups'
+    results fill the card, and no group's peak passes the card; read once
+    for the shard it cuts groups of 20, and the fourth passes it."""
+    size = 40 * GOP_BINS * tec.EST_BIN_BYTES
+    lengths = [GOP_BINS] * 100
+    groups, peaks = _fill_card(monkeypatch, lengths, size, once=False)
+    assert len(groups) >= 5 and max(peaks) <= size
+    assert [len(g) for g in groups[:3]] == [20, 16, 13]
+    assert [i for g in groups for i in g] == list(range(100))
+    groups, peaks = _fill_card(monkeypatch, lengths, size, once=True)
+    assert {len(g) for g in groups} == {20} and peaks[3] > size
+
+
+def test_card_budget_is_half_the_free_memory_over_a_bins_bytes(monkeypatch):
+    """Free bytes are the driver's free memory and the caching allocator's
+    reserved but unallocated bytes; half of them over EST_BIN_BYTES, the
+    sum of the stage's per-bin allocations."""
+    dev = torch.device("cuda", 3)
+    seen = []
+
+    def mem_get_info(d):
+        seen.append(d)
+        return 30 << 30, 80 << 30
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 6 << 30)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 2 << 30)
+    assert tec.EST_BIN_BYTES == 8 + 16 + 16 + 4
+    assert tec.card_group_bins(dev) == (34 << 30) // 2 // 44
+    assert seen == [dev]
+    # 34 GiB free holds a 48-GOP recording of the archive cell at once
+    assert tec.card_group_bins(dev) >= 48 * GOP_BINS
 
 
 def test_a_slot_past_the_table_still_raises():
