@@ -436,7 +436,7 @@ def _squash():
 
 _SQUASH = None
 
-XSTATS = 12  # the counters avtpu_xstats writes
+XSTATS = 13  # the counters avtpu_xstats writes
 
 
 def _extraction_spans(lib, ptr, parent):
@@ -446,14 +446,15 @@ def _extraction_spans(lib, ptr, parent):
     recoded (gop_slices_failed); pass A, the parse, and pass B, the
     model's replay, summed over the slices (gop_parse_s, gop_model_s); the
     jobs' wall and thread CPU time (gop_job_s, gop_cpu_s); the pool's
-    threads times the GOP phase's wall (gop_pool_s).  Where the call is
-    recorded, the walk, the GOP phase, each job (on its own thread) and the
-    stitch are kept as spans under `parent`: the library's steady_clock is
-    perf_counter_ns's clock."""
+    threads times the GOP phase's wall (gop_pool_s); pass A's bins in MBAFF
+    pairs decoded as fields (gop_field_bins, 0 on progressive input).
+    Where the call is recorded, the walk, the GOP phase, each job (on its
+    own thread) and the stitch are kept as spans under `parent`: the
+    library's steady_clock is perf_counter_ns's clock."""
     c = (ctypes.c_int64 * XSTATS)()
     n_jobs = lib.avtpu_xstats(ptr, c, XSTATS, None, 0)
     (t_start, t_walked, t_joined, t_end, threads, jobs, slices, failed,
-     parse_ns, model_ns, job_ns, cpu_ns) = c
+     parse_ns, model_ns, job_ns, cpu_ns, field_bins) = c
     for key, value in (
             ("extract_walk_s", (t_walked - t_start) / 1e9),
             ("extract_stitch_s", (t_end - t_joined) / 1e9),
@@ -461,7 +462,8 @@ def _extraction_spans(lib, ptr, parent):
             ("gop_slices_failed", failed), ("gop_parse_s", parse_ns / 1e9),
             ("gop_model_s", model_ns / 1e9), ("gop_job_s", job_ns / 1e9),
             ("gop_cpu_s", cpu_ns / 1e9),
-            ("gop_pool_s", threads * (t_joined - t_walked) / 1e9)):
+            ("gop_pool_s", threads * (t_joined - t_walked) / 1e9),
+            ("gop_field_bins", field_bins)):
         count(key, value)
     if parent is None:
         return

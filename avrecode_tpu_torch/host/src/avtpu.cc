@@ -805,9 +805,10 @@ struct XStats {
   int64_t t_start = 0, t_walked = 0, t_joined = 0, t_end = 0;
   int64_t threads = 0, jobs = 0, slices = 0, failed = 0;
   int64_t parse_ns = 0, model_ns = 0, job_ns = 0, cpu_ns = 0;
+  int64_t field_bins = 0;  // pass A's bins in MBAFF pairs decoded as fields
   std::vector<XJobTime> job_times;
 };
-static const size_t kXStats = 12;  // counters avtpu_xstats writes
+static const size_t kXStats = 13;  // counters avtpu_xstats writes
 
 static int64_t steady_ns() {
   return std::chrono::duration_cast<std::chrono::nanoseconds>(
@@ -955,6 +956,7 @@ static XtractResult extract_open_impl(const uint8_t* data, size_t size,
     size_t mark = recorder->trace_mark();
     recorder->set_defer_trace(true);
     int mb_count, drop;
+    uint64_t field_bins = 0;
     Bytes tail;
     try {
       if (rec.hdr.cavlc) {
@@ -972,6 +974,7 @@ static XtractResult extract_open_impl(const uint8_t* data, size_t size,
         SliceParser p(rec.sps, rec.pps, rec.hdr, &scratch, cand_prev, &c,
                       sid, /*isolate=*/!per_gop);
         mb_count = p.parse_slice_data(-1);
+        field_bins = p.field_bins();
         if (!c.verify_tail(&drop, &tail)) throw Desync("re-encode mismatch");
       }
     } catch (const ParseError&) {
@@ -984,6 +987,7 @@ static XtractResult extract_open_impl(const uint8_t* data, size_t size,
     recorder->set_defer_trace(false);
     int64_t b0 = steady_ns();
     st->parse_ns += b0 - a0;
+    st->field_bins += (int64_t)field_bins;
     recorder->replay_trace_tail(mark);
     st->model_ns += steady_ns() - b0;
     if (advance) prev = std::move(cur);
@@ -1066,7 +1070,7 @@ struct XGopJob {
   LaneCodes lane;                    // the lane form's trace
   int first_ok = -1;
   // written on the job's thread only (see XStats)
-  int64_t parse_ns = 0, model_ns = 0, cpu_ns = 0;
+  int64_t parse_ns = 0, model_ns = 0, cpu_ns = 0, field_bins = 0;
   XJobTime time{0, 0, 0};
 };
 
@@ -1137,6 +1141,7 @@ static void process_gop_x_impl(const uint8_t* data,
       recorder->set_defer_trace(true);
     }
     int mb_count, drop;
+    uint64_t field_bins = 0;
     Bytes tail;
     try {
       if (rec.hdr.cavlc) {
@@ -1154,6 +1159,7 @@ static void process_gop_x_impl(const uint8_t* data,
         SliceParser p(rec.sps, rec.pps, rec.hdr, &scratch, cand_prev, &c,
                       sid, false);
         mb_count = p.parse_slice_data(-1);
+        field_bins = p.field_bins();
         if (!c.verify_tail(&drop, &tail)) throw Desync("re-encode mismatch");
       }
     } catch (const ParseError&) {
@@ -1167,6 +1173,7 @@ static void process_gop_x_impl(const uint8_t* data,
     // (the lane form: each bin's code)
     int64_t b0 = steady_ns();
     job->parse_ns += b0 - a0;
+    job->field_bins += (int64_t)field_bins;
     if (pass_a)
       recorder->replay_lane(pass_a->data(), pass_a->size(),
                             job->lane.extend(pass_a->size()));
@@ -1259,6 +1266,7 @@ static XtractResult extract_open_gop_mt(const uint8_t* data, size_t size,
     for (uint8_t ok : job.ok) st.failed += !ok;
     st.parse_ns += job.parse_ns;
     st.model_ns += job.model_ns;
+    st.field_bins += job.field_bins;
     st.cpu_ns += job.cpu_ns;
     st.job_ns += job.time.t1 - job.time.t0;
     st.job_times.push_back(job.time);
@@ -1867,19 +1875,20 @@ void avtpu_xtrace(void* handle, size_t i, const uint64_t** recs,
 void avtpu_xclose(void* handle) { delete (avtpu::XtractResult*)handle; }
 
 // Where the extraction behind the handle spent its time (XStats): the
-// first min(n, 12) of its counters into out: steady_clock ns at its start,
+// first min(n, 13) of its counters into out: steady_clock ns at its start,
 // at the end of the walk, at the GOP jobs' join and at its end; the job
 // pool's threads; the jobs, their slices and the slices not recoded; pass
 // A (parse) and pass B (model) ns, summed over the slices; the jobs' wall
-// and thread CPU ns, summed over them.  Then the first max_jobs jobs'
-// (thread id, start ns, end ns) into job_times.  Returns the job count.
+// and thread CPU ns, summed over them; pass A's bins in MBAFF pairs
+// decoded as fields.  Then the first max_jobs jobs' (thread id, start ns,
+// end ns) into job_times.  Returns the job count.
 size_t avtpu_xstats(void* handle, int64_t* out, size_t n, int64_t* job_times,
                     size_t max_jobs) {
   const avtpu::XStats& st = ((avtpu::XtractResult*)handle)->stats;
   const int64_t all[avtpu::kXStats] = {
       st.t_start, st.t_walked, st.t_joined, st.t_end,
       st.threads, st.jobs, st.slices, st.failed,
-      st.parse_ns, st.model_ns, st.job_ns, st.cpu_ns};
+      st.parse_ns, st.model_ns, st.job_ns, st.cpu_ns, st.field_bins};
   std::copy(all, all + std::min(n, avtpu::kXStats), out);
   size_t k = std::min(max_jobs, st.job_times.size());
   for (size_t j = 0; j < k; j++) {

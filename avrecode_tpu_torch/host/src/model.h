@@ -420,6 +420,8 @@ class RecodeModel {
   }
   void set_defer(std::vector<uint64_t>* buf) { defer_ = buf; }
   bool deferred() const { return defer_ != nullptr; }
+  // records in the pass-A sink (0 outside pass A)
+  size_t deferred_size() const { return defer_ ? defer_->size() : 0; }
   // trace-mode two-pass: pass A appends raw records straight into the
   // trace buffer (zero-copy — the pass-A buffer IS the trace), pass B
   // rewrites them in place with the exact p1 via replay_records

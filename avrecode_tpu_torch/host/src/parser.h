@@ -166,6 +166,8 @@ struct Coder {
   }
 
   int cabac_p1(int ctx) const { return kCabacP1[states.s[ctx]]; }
+  // bins recorded so far in pass A (0 outside it)
+  size_t recorded() const { return model ? model->deferred_size() : 0; }
 
   // I_PCM: escape bin (modeled so decompress knows) + raw samples at the
   // byte boundary after the flushed terminate; engines restart (9.3.1.2)
@@ -387,6 +389,7 @@ class SliceParser {
         eff_field_ = predict_field();
       }
       cur_field_ = eff_field_;  // provisional (stale register)
+      size_t pair_bins0 = c_->recorded();
       bool top_skipped = false;
       for (int bottom = 0; bottom < 2; bottom++) {
         mbx_ = px;
@@ -403,6 +406,7 @@ class SliceParser {
         }
         n++;
       }
+      if (cur_field_) field_bins_ += c_->recorded() - pair_bins0;
       int eos;
       if (mb_count < 0) {
         eos = c_->raw_terminate();
@@ -415,6 +419,10 @@ class SliceParser {
     }
     return n;
   }
+
+  // pass A's bins in the MB pairs decoded as fields (MBAFF), counted at
+  // the end of each pair
+  uint64_t field_bins() const { return field_bins_; }
 
  private:
   // -- availability ----------------------------------------------------
@@ -1770,6 +1778,7 @@ class SliceParser {
   bool field_pic_ = false;  // PAFF field picture
   int cur_field_ = 0, eff_field_ = 0;
   bool field_known_ = false;
+  uint64_t field_bins_ = 0;
   int top_xy_[2] = {0, -1};
   int left_xy_[2][2] = {{-1, 0}, {-1, 0}};
   int left_ymap_[4] = {0, 1, 2, 3};

@@ -55,6 +55,7 @@ KEYS = (
     "extract_py_s", "extract_release_s",
     "gop_jobs", "gop_slices", "gop_slices_failed", "gop_parse_s",
     "gop_model_s", "gop_job_s", "gop_cpu_s", "gop_pool_s",
+    "gop_field_bins",
     "wait_s", "pack_s", "copy_s", "dispatch_s", "upload_s", "collect_s",
     "envelope_s", "serialise_s", "dispatches", "bins", "trace_bytes",
     "est_pack_s", "est_upload_s", "est_launch_s", "est_collect_s",

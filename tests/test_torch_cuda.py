@@ -330,6 +330,25 @@ def test_est_kernel_matches_plain(cuda, kind, S, T, NS):
         assert torch.equal(a, b)
 
 
+def test_broadcast_gop_on_the_main_path(cuda):
+    """A 1080i MBAFF GOP of the broadcast configuration
+    (benchmark/clips/broadcast/bc_gop1.264, field pairs nearly throughout)
+    through the lane main path at the configuration's 16,384 bins a lane:
+    the index launcher runs, and the container equals the host codec's."""
+    if not native.available():
+        pytest.skip("native library not built")
+    path = os.path.join(os.path.dirname(__file__), "..", "benchmark",
+                        "clips", "broadcast", "bc_gop1.264")
+    with open(path, "rb") as f:
+        data = f.read()
+    before = tlc.lane_encode_streams_idx.launches
+    blob = device_compress(data, scope="gop", substream_bins=16384,
+                           device=cuda)
+    assert tlc.lane_encode_streams_idx.launches > before
+    assert blob == codec.compress(data, scope="gop", substream_bins=16384)
+    assert native.decompress(blob) == data
+
+
 def test_est_main_path_launches_kernel(cuda):
     if not native.available():
         pytest.skip("native library not built")
