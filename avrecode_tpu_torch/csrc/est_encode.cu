@@ -1,5 +1,5 @@
 // Est-on-device entropy stage for Hopper (sm_90a): the adaptive recode
-// model and the range encoder, one serial trace per warp.
+// model and the range encoder, one serial trace per block of stage warps.
 //
 // Replaces avrecode_tpu/ops/pallas_coder.py::_kernel (the Pallas TPU kernel
 // launched by _encode_raw).  Per valid bin: the estimator row at `slot`,
@@ -23,6 +23,10 @@
 //   rows_scratch               uint64 [S, NS] estimator rows, only when the
 //                                             launch plan keeps them out of
 //                                             shared memory (else unused)
+//   waits                      int32 [S, 4]   or null: per trace and stage,
+//                                             the ring tiles on which the
+//                                             stage found its ring not ready
+//                                             (below)
 //
 // Bounds on this card.  Bytes: every input read once and every token
 // written once is 16 B a padded bin plus 8 B a slot (487 MB at S = 1,024,
@@ -30,57 +34,92 @@
 // are less still.  Neither is what the kernel can reach: the container
 // format gives every trace ONE range-coder stream and ONE adaptive model,
 // so a trace is a serial chain, and the floor is the longest trace's bin
-// count times the latency of one bin's dependent instructions.
+// count times the latency of one bin's dependent instructions: 125 cycles,
+// the mixer weights' loop-carried path (chip_latency.cu, est_chain; the
+// estimator row's 58, the coder's 53, an APM cell's 48).
 //
 // What the design does about the chain:
-//   * One warp per trace.  All 32 threads run the chain redundantly on
-//     warp-uniform values (a warp runs an instruction once whatever its
-//     active threads, and same-address shared accesses broadcast), so no
-//     value has to be handed from a leader thread to the others, and no
-//     two traces share a warp: a trace never waits on another trace's
-//     gathers as it did with 32 traces a warp.
-//   * Per 32-bin tile, a parallel phase: four coalesced 128-byte loads
-//     (slots, bits, pcabs, valid), started two tiles ahead; the dependent
-//     gathers cls[slot] and limits[slot], started one tile ahead; the valid
-//     bins compacted with __ballot_sync/__popc (holes are skipped, never a
-//     stop); and per bin what does not depend on the model state
-//     (stretch(pcab), the class, the halving limit) written as one 16-byte
-//     entry into a shared-memory tile.  Then a serial phase over the
-//     tile's valid entries.
+//   * Stage warps.  The container is already encoded, so every bin's bit
+//     is an input and no value flows backward through the model: a bin's
+//     work is a feed-forward chain of four stages, each with only its own
+//     state, and a trace gets one warp a stage:
+//       rows   the tile loads and the compaction (below), then per bin the
+//              estimator row at `slot`, read and updated (the dual-rate
+//              counters, the last two bits); state: the rows
+//       mixer  the dot over the class's 6 weights, squash, the weight
+//              update on err = bit << 16 - pmix; state: the weights
+//       APM    stretch(pmix), the interpolation in the (class, h) row, the
+//              cell update, p1 = squash(stretch(pb)); state: the APM cells
+//       coder  the range-coder step on (bit, p1) and the token writes;
+//              state: low, rng, pend, pos
+//     The warps of a block land on the SM's four schedulers (warp index
+//     mod 4), so a bin costs the busiest stage's instructions, not the sum
+//     of all four on one scheduler.  A trace's warps are rotated by its
+//     place in the block, so that with several traces a block every
+//     scheduler holds one warp of each stage.
+//   * What depends on no state runs a bin a thread, not on the serial
+//     path.  Per 32-bin load tile, the rows warp's parallel phases: before
+//     its serial loop, four coalesced 128-byte loads (slots, bits, pcabs,
+//     valid), started two tiles ahead; the dependent gathers cls[slot] and
+//     limits[slot], started one tile ahead; the valid bins compacted with
+//     __ballot_sync/__popc (holes are skipped, never a stop), and per bin
+//     stretch(pcab), the class and the halving limit written as one 16-byte
+//     entry into a shared-memory tile.  After it, the mixer's inputs from
+//     each bin's row as read: x0 = stretch of the counters' probability
+//     (its integer division included), x3 = stretch of the fast counters'
+//     (a table by (f0, f1)), x4 and x5 from the last two bits, and the APM
+//     row (class, history); the serial loop itself only reads, updates and
+//     stores the rows.
+//   * Hand-over: between two stages a ring of kRing tiles in shared
+//     memory, a tile the compacted valid bins of one 32-bin load tile and
+//     their count, with a full and an empty mbarrier a tile (count 32: the
+//     whole warp arrives, each thread releasing its own stores).  Per bin
+//     rows -> mixer carries x0, x1, x3, x4, x5, the class, the APM row and
+//     the bit (32 B); mixer -> APM pmix, the APM row and the bit (4 B);
+//     APM -> coder p1 and the bit (4 B).  A tile of count -1 ends the
+//     trace.  A stage that finds a tile not ready counts it (waits: the
+//     rows warp a full rows -> mixer ring, the others an empty input
+//     ring), which says which stage sets the pace.
+//   * Inside a stage, the serial idiom: all 32 threads run the stage's
+//     loop on warp-uniform values (a warp issues an instruction once
+//     whatever its active threads, and same-address shared accesses
+//     broadcast), and each stage loads the next bin's state before it
+//     stores this bin's, forwarded by a select when the slot (rows) or the
+//     class (mixer) repeats.
 //   * State close: mixer weights (79 x 8 int32), APM cells (395 x 33, as
 //     uint16: a cell stays inside [0, 65535]) and the stretch/squash tables
 //     (int16/uint16) live in shared memory.  An estimator row is packed
 //     into 8 bytes (counters <= 0x7FFF in 15 bits each, fast counters
-//     <= 0x18 in 5 bits each, the two last-bit fields in 2 bits each, and
-//     the 12-bit stretch of the counters' probability, cached) and the rows
-//     live in shared memory where the block's 227 KB hold them, in global
-//     scratch otherwise (est_coder.est_launch_plan decides; the kernel is
-//     right for any NS).  The whole warp initialises the state, coalesced.
-//   * The two divisions off the chain, exactly: stretch(pf) comes from a
-//     table by (f0, f1); stretch(pe) is computed with the same integer
-//     division as before, but when the row is UPDATED, and cached in the
-//     row, so the next reader finds it ready (only a bin that reads the
-//     slot the bin before it wrote waits for it).
-//   * Software pipelining inside the serial phase: the next bin's entry,
-//     row and weights are loaded before this bin's are stored and
-//     forwarded by a select when slot or class repeat; the coder step of
-//     bin j runs in iteration j + 1, so the APM lookups and the two table
-//     lookups behind p1 overlap the next bin's mixer.
+//     <= 0x18 in 5 bits each, the two last-bit fields in 2 bits each) and
+//     the rows live in shared memory where the block's 227 KB hold them,
+//     in global scratch otherwise (est_coder.est_launch_plan decides; the
+//     kernel is right for any NS).  Each stage warp initialises its own
+//     state.
 //
-// What is left is the bin itself: about 250 instructions and seven
-// dependent shared-memory lookups (~29 cycles each on this card), 0.30 us a
-// bin for a trace alone.  Tried, as variants run by chip_variants.py on an
-// NVIDIA H100 80GB HBM3 at 700 W, against 0.298 us a bin: a third pipeline
-// stage (the APM stage one bin behind the mixer, the coder two behind),
-// 0.332; the counters and the division first in the iteration, 0.338; the
-// table lookups as asm loads that the compiler may move across the state's
-// stores, 0.298; the serial phase on 1 or 16 threads of the warp, 0.328 and
-// 0.330 (an instruction costs a warp the same whatever its active
-// threads).
+// Tried before the stage warps, with the whole bin on one warp (about 250
+// instructions and seven dependent shared-memory lookups, 0.298 us a bin
+// for a trace alone, ~590 cycles against an issue floor of ~500), as
+// variants run by chip_variants.py on an NVIDIA H100 80GB HBM3 at 700 W: a
+// third pipeline stage (the APM stage one bin behind the mixer, the coder
+// two behind), 0.332 us; the counters and the division first in the
+// iteration, 0.338; the table lookups as asm loads that the compiler may
+// move across the state's stores, 0.298; the serial phase on 1 or 16
+// threads of the warp, 0.328 and 0.330 (an instruction costs a warp the
+// same whatever its active threads).  None got under ~500 cycles, because
+// every instruction of the bin issued from one scheduler.  The first stage
+// warps (the division, the fast-counter lookup and the mixer's other
+// inputs in the rows warp's serial loop) ran 0.155 us a bin: the rows warp
+// set the pace, the three others finding their input ring empty on every
+// tile.  With those inputs a bin a thread, 0.087 us (~173 cycles): the
+// mixer sets the pace (83 instructions a bin, against its 125-cycle
+// chain), the rows warp finding its ring full on nearly every tile.  The
+// mixer's clamps as DPX instructions (__viaddmax_s32, __viaddmin_s32_relu;
+// 67 instructions a bin, the loop unrolled by two) ran 0.085 us, 3.5% less
+// on a lone trace and 0.8% more on 128 traces; not kept.
 //
-// An SM holds as many traces as its shared memory (45 KB a trace at NS =
-// 2,108): the kernel's time is flat up to 528 traces at that NS and grows
-// with the number of waves beyond.
+// An SM holds as many traces as its shared memory (~50 KB a trace at NS =
+// 2,108, four an SM), and registers stay at 64 a thread or under
+// (__launch_bounds__ of 8 traces' 32 warps), so that they never bind first.
 //
 // Signed arithmetic stays in int: (w >> 6), (err * x) >> 14 and the APM
 // update shift negative values and must be arithmetic shifts.  The mixer
@@ -101,15 +140,25 @@ constexpr int kHalveFast = 0x18;
 constexpr int kWClip = 1 << 24;
 constexpr int kTbl = 4096;
 constexpr int kPfTab = 1024;    // f0 | f1 << 5
-constexpr int kMaxWarps = 8;
+constexpr int kStages = 4;      // warps a trace: rows, mixer, APM, coder
+constexpr int kRing = 4;        // tiles a ring
+constexpr int kMaxTraces = 8;   // traces a block: 32 warps
 
 // shared-memory layout, in bytes (est_coder.py holds the same numbers and
-// the launcher checks the size it is given against them)
+// the launcher checks the size it is given against them): the tables, then
+// per trace its fixed state and rings, then its rows where they are shared
 constexpr int kTableBytes = kTbl * 2 + kTbl * 2 + kPfTab * 2;  // 18,432
 constexpr int kTileBytes = 32 * 16;                            // entries
 constexpr int kWtsBytes = kNCls * 8 * 4;                       // 2,528
 constexpr int kApmBytes = (kNCls * kApmHist * kApmCells * 2 + 15) / 16 * 16;
-constexpr int kWarpFixedBytes = kTileBytes + kWtsBytes + kApmBytes;  // 29,120
+constexpr int kRmBytes = kRing * 32 * 32;  // rows -> mixer, two int4 a bin
+constexpr int kMaBytes = kRing * 32 * 4;   // mixer -> APM
+constexpr int kAcBytes = kRing * 32 * 4;   // APM -> coder
+constexpr int kCountBytes = 3 * kRing * 4;      // a tile's bins, a ring
+constexpr int kBarBytes = 3 * kRing * 2 * 8;    // full, empty a tile, a ring
+constexpr int kTraceFixedBytes = kTileBytes + kWtsBytes + kApmBytes + kRmBytes +
+                                 kMaBytes + kAcBytes + kCountBytes +
+                                 kBarBytes;  // 34,480
 
 __host__ __device__ constexpr int rows_bytes(int NS) { return (NS * 8 + 15) / 16 * 16; }
 
@@ -117,26 +166,104 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// the phase of parity `parity` of the barrier has completed (acquire):
+// test_wait returns at once, try_wait may suspend the warp for a while
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait for the phase; a wait that does not pass at once adds one to waits
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity,
+                                          int& waits) {
+  if (!mbar_test(bar, parity)) {
+    ++waits;
+    while (!mbar_try(bar, parity)) {
+    }
+  }
+}
+
+// A ring between two stage warps: kRing tiles of 32 bins, the bins a tile
+// (-1: the trace ended), and a full and an empty barrier a tile.  Tile u
+// of a trace lies at u % kRing; its use k = u / kRing completes phase k of
+// both barriers, of parity k & 1.  Every ring carries the same tiles, so a
+// stage keeps one position for its input and its output ring.
+struct Ring {
+  unsigned char* data;
+  int* count;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+struct Pos {
+  int slot = 0;
+  uint32_t parity = 0;
+  __device__ __forceinline__ void next() {
+    if (++slot == kRing) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
+};
+
 // Estimator row, 8 bytes:
 //   x: e0 [0,15)  e1 [15,30)  last bit [30,32) (2 = none yet)
 //   y: f0 [0,5)   f1 [5,10)   second-last bit [10,12)
-//      stretch(pe >> 4) [12,24), two's complement
 __device__ __forceinline__ uint2 pack_row(int e0, int e1, int f0, int f1,
-                                          int lb, int lb2,
-                                          const int16_t* s_stretch) {
-  // e0 <= 0x7FFF here, so the quotient of the unsigned division is the
-  // signed one's
-  const int pe = clampi(static_cast<int>((static_cast<uint32_t>(e0) << 16) /
-                                         static_cast<uint32_t>(e0 + e1)),
-                        1, 0xFFFF);
-  const int x0 = s_stretch[pe >> 4];
+                                          int lb, int lb2) {
   uint2 r;
   r.x = static_cast<uint32_t>(e0) | (static_cast<uint32_t>(e1) << 15) |
         (static_cast<uint32_t>(lb) << 30);
   r.y = static_cast<uint32_t>(f0) | (static_cast<uint32_t>(f1) << 5) |
-        (static_cast<uint32_t>(lb2) << 10) |
-        ((static_cast<uint32_t>(x0) & 0xFFFu) << 12);
+        (static_cast<uint32_t>(lb2) << 10);
   return r;
+}
+
+// stretch of the counters' probability: e0 <= 0x7FFF here, so the
+// quotient of the unsigned division is the signed one's
+__device__ __forceinline__ int counter_stretch(int e0, int e1,
+                                               const int16_t* s_stretch) {
+  const int pe = clampi(static_cast<int>((static_cast<uint32_t>(e0) << 16) /
+                                         static_cast<uint32_t>(e0 + e1)),
+                        1, 0xFFFF);
+  return s_stretch[pe >> 4];
 }
 
 struct Coder {
@@ -144,23 +271,19 @@ struct Coder {
   int pend, pos;
 };
 
-// range coder: put, then up to two renorm byte shifts.  With active false
-// nothing changes (the first iteration of a trace holds no bin yet); the
-// step is written with selects so that it stays inside the caller's basic
-// block and the compiler can interleave it with the next bin's mixer.
-__device__ __forceinline__ void coder_put(Coder& cd, bool active, int bit,
-                                          int p1, int32_t* to, int32_t* co,
+// range coder: put, then up to two renorm byte shifts
+__device__ __forceinline__ void coder_put(Coder& cd, int bit, int p1,
+                                          int32_t* to, int32_t* co,
                                           bool writer) {
   const uint32_t r1 = (cd.rng >> 16) * static_cast<uint32_t>(p1);
   const uint32_t low_a = cd.low + r1;
-  const bool zero = active && bit != 1;
-  const bool one = active && bit == 1;
+  const bool zero = bit != 1;
   cd.pend += (zero && low_a < cd.low) ? 1 : 0;  // carry out of the 32-bit low
   cd.low = zero ? low_a : cd.low;
-  cd.rng = zero ? cd.rng - r1 : (one ? r1 : cd.rng);
+  cd.rng = zero ? cd.rng - r1 : r1;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const bool fire = active && cd.rng < kTop;
+    const bool fire = cd.rng < kTop;
     if (fire && writer) {
       to[cd.pos] = static_cast<int32_t>(cd.low >> 24);
       co[cd.pos] = cd.pend;
@@ -172,74 +295,19 @@ __device__ __forceinline__ void coder_put(Coder& cd, bool active, int bit,
   }
 }
 
+// The rows stage, with the tile loads: every valid bin's estimator row ->
+// the mixer's inputs on ring `out`.
 template <bool kRowsShared>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-est_encode_kernel(const int32_t* __restrict__ slots,
-                  const int32_t* __restrict__ bits,
-                  const int32_t* __restrict__ pcabs,
-                  const int32_t* __restrict__ valid,
-                  const int32_t* __restrict__ limits,
-                  const int32_t* __restrict__ cls,
-                  const int32_t* __restrict__ tbl,
-                  const int32_t* __restrict__ apm_row,
-                  const int32_t* __restrict__ pf_tab,
-                  int32_t* __restrict__ tok, int32_t* __restrict__ car,
-                  int32_t* __restrict__ count, uint2* rows_scratch,
-                  int S, int T, int NS) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int16_t* s_stretch = reinterpret_cast<int16_t*>(smem);
-  uint16_t* s_squash = reinterpret_cast<uint16_t*>(smem + kTbl * 2);
-  int16_t* s_pf = reinterpret_cast<int16_t*>(smem + kTbl * 4);
-  for (int k = threadIdx.x; k < kTbl; k += blockDim.x) {
-    s_stretch[k] = static_cast<int16_t>(tbl[2 * k]);
-    s_squash[k] = static_cast<uint16_t>(tbl[2 * k + 1]);
-  }
-  for (int k = threadIdx.x; k < kPfTab; k += blockDim.x)
-    s_pf[k] = static_cast<int16_t>(pf_tab[k]);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  // callers sort traces by length, shortest first: walk them from the
-  // back, so that the longest chains start first and the tail is short
-  const int s = S - 1 - (blockIdx.x * nwarps + warp);
-  if (s < 0) return;
-
-  const int warp_bytes = kWarpFixedBytes + (kRowsShared ? rows_bytes(NS) : 0);
-  unsigned char* wbase = smem + kTableBytes + warp * warp_bytes;
-  uint4* s_tile = reinterpret_cast<uint4*>(wbase);
-  int4* s_wts = reinterpret_cast<int4*>(wbase + kTileBytes);
-  uint16_t* s_apm = reinterpret_cast<uint16_t*>(wbase + kTileBytes + kWtsBytes);
-  uint2* rows = kRowsShared
-      ? reinterpret_cast<uint2*>(wbase + kWarpFixedBytes)
-      : rows_scratch + static_cast<size_t>(s) * NS;
-
-  // this trace's state, initialised by the whole warp as the host model's
-  // pools are
-  const uint2 row0 = pack_row(1, 1, 1, 1, 2, 2, s_stretch);  // no last bit yet
+__device__ __forceinline__ void rows_stage(
+    const int32_t* __restrict__ slots, const int32_t* __restrict__ bits,
+    const int32_t* __restrict__ pcabs, const int32_t* __restrict__ valid,
+    const int32_t* lim, const int32_t* cl, const int16_t* s_stretch,
+    const int16_t* s_pf, uint4* s_tile, uint2* rows, Ring out, size_t row,
+    int T, int NS, int lane, int& waits) {
+  // this trace's rows, initialised as the host model's pool is
+  const uint2 row0 = pack_row(1, 1, 1, 1, 2, 2);  // no last bit yet
   for (int k = lane; k < NS; k += 32) rows[k] = row0;
-  for (int k = lane; k < kNCls * 2; k += 32)
-    s_wts[k] = (k & 1) ? make_int4(0, 0, 0, 0) : make_int4(24576, 24576, 0, 0);
-  const uint16_t cell = static_cast<uint16_t>(apm_row[lane]);
-  const uint16_t cell32 = static_cast<uint16_t>(apm_row[kApmCells - 1]);
-  for (int r = 0; r < kNCls * kApmHist; ++r) {
-    // 33 cells a row: thread 0 writes the last one too
-    s_apm[r * kApmCells + lane] = cell;
-    if (lane == 0) s_apm[r * kApmCells + kApmCells - 1] = cell32;
-  }
   __syncwarp();
-
-  const size_t row = static_cast<size_t>(s) * T;
-  const int32_t* lim = limits + static_cast<size_t>(s) * NS;
-  const int32_t* cl = cls + static_cast<size_t>(s) * NS;
-  int32_t* to = tok + static_cast<size_t>(s) * (2 * static_cast<size_t>(T) + 2);
-  int32_t* co = car + static_cast<size_t>(s) * (2 * static_cast<size_t>(T) + 2);
-  const bool writer = lane == 0;
-
-  Coder cd{0u, 0xFFFFFFFFu, 0, 0};
-  int held_bit = 0, held_p1 = 0;
-  bool held = false;  // a bin whose coder step has not run yet
 
   // tile pipeline, per thread: a = tile t + 2 (raw loads in flight),
   // b = tile t + 1 (raw loads landed, gathers in flight), c = tile t
@@ -272,6 +340,7 @@ est_encode_kernel(const int32_t* __restrict__ slots,
     }
   };
 
+  Pos pos;
   load_raw(0);
   gather();
   load_raw(1);
@@ -294,64 +363,29 @@ est_encode_kernel(const int32_t* __restrict__ slots,
     }
     __syncwarp();
 
-    // serial phase, every thread on the same values
     if (n > 0) {
+      mbar_wait(out.empty + pos.slot, pos.parity ^ 1u, waits);
+      int4* oa = reinterpret_cast<int4*>(out.data) + pos.slot * 64;
+
+      // serial phase, every thread on the same values: each bin's row as
+      // read goes to its ring entry, its update to the rows
       uint4 en = s_tile[0];
       uint2 rw = rows[en.x];
-      int4 wa = s_wts[((en.y >> 16) & 0xFF) * 2];
-      int4 wb = s_wts[((en.y >> 16) & 0xFF) * 2 + 1];
       for (int j = 0; j < n; ++j) {
         const int slot = static_cast<int>(en.x);
         const int limit = static_cast<int>(en.y & 0xFFFFu);
-        const int c = static_cast<int>((en.y >> 16) & 0xFFu);
         const int bit = static_cast<int>(en.y >> 24);
-        const int x1 = static_cast<int>(en.z);
 
-        // the next bin's entry, row and weights, loaded before this bin's
-        // are stored (forwarded below when slot or class repeat)
-        const int jn = j + 1 < n ? j + 1 : j;
-        const uint4 en_n = s_tile[jn];
+        // the next bin's entry and row, loaded before this bin's row is
+        // stored (forwarded below when the slot repeats; the last bin
+        // forwards to nothing)
+        const uint4 en_n = s_tile[j + 1 < n ? j + 1 : j];
         uint2 rw_n = rows[en_n.x];
-        const int c_n = static_cast<int>((en_n.y >> 16) & 0xFFu);
-        int4 wa_n = s_wts[c_n * 2];
-        int4 wb_n = s_wts[c_n * 2 + 1];
-
-        // the held bin's coder step: its p1 came out of the last iteration
-        coder_put(cd, held, held_bit, held_p1, to, co, writer);
-
-        const int e0 = rw.x & 0x7FFF, e1 = (rw.x >> 15) & 0x7FFF;
-        const int lb = rw.x >> 30;
-        const int f0 = rw.y & 31, f1 = (rw.y >> 5) & 31;
-        const int lb2 = (rw.y >> 10) & 3;
-        // mixer inputs: counter probability (cached stretch), CABAC
-        // probability, bias, fast counter, last two bits of this slot
-        const int x0 = (static_cast<int>(rw.y) << 8) >> 20;
-        const int x3 = s_pf[rw.y & 0x3FF];
-        const int x4 = lb == 2 ? 0 : (lb == 1 ? 256 : -256);
-        const int x5 = lb2 == 2 ? 0 : (lb2 == 1 ? 128 : -128);
-        const int w0 = wa.x, w1 = wa.y, w2 = wa.z, w3 = wa.w, w4 = wb.x, w5 = wb.y;
-        int dot = ((w0 >> 6) * x0 + (w1 >> 6) * x1 + (w2 >> 6) * 77 +
-                   (w3 >> 6) * x3 + (w4 >> 6) * x4 + (w5 >> 6) * x5) >> 10;
-        dot = clampi(dot, -2048, 2047);
-        const int pmix = s_squash[dot + 2048];
-
-        // the mixer learns on its pre-APM output
-        const int tgt = bit << 16;
-        const int err = tgt - pmix;
-        int4 na, nb;
-        na.x = clampi(w0 + ((err * x0) >> 14), -kWClip, kWClip);
-        na.y = clampi(w1 + ((err * x1) >> 14), -kWClip, kWClip);
-        na.z = clampi(w2 + ((err * 77) >> 14), -kWClip, kWClip);
-        na.w = clampi(w3 + ((err * x3) >> 14), -kWClip, kWClip);
-        nb.x = clampi(w4 + ((err * x4) >> 14), -kWClip, kWClip);
-        nb.y = clampi(w5 + ((err * x5) >> 14), -kWClip, kWClip);
-        nb.z = nb.w = 0;
-        s_wts[c * 2] = na;
-        s_wts[c * 2 + 1] = nb;
+        *reinterpret_cast<uint2*>(oa + j) = rw;
 
         // dual-rate counters with the slot's own halving limit
-        int e0n = e0 + bit, e1n = e1 + (1 - bit);
-        int f0n = f0 + bit, f1n = f1 + (1 - bit);
+        int e0n = (rw.x & 0x7FFF) + bit, e1n = ((rw.x >> 15) & 0x7FFF) + (1 - bit);
+        int f0n = (rw.y & 31) + bit, f1n = ((rw.y >> 5) & 31) + (1 - bit);
         if (e0n + e1n > limit) {
           e0n = (e0n + 1) >> 1;
           e1n = (e1n + 1) >> 1;
@@ -360,42 +394,195 @@ est_encode_kernel(const int32_t* __restrict__ slots,
           f0n = (f0n + 1) >> 1;
           f1n = (f1n + 1) >> 1;
         }
-        const uint2 rw_new = pack_row(e0n, e1n, f0n, f1n, bit, lb, s_stretch);
+        const uint2 rw_new =
+            pack_row(e0n, e1n, f0n, f1n, bit, static_cast<int>(rw.x >> 30));
         rows[slot] = rw_new;
 
-        // APM: interpolate between two cells of the (class, history) row
-        const int u = s_stretch[pmix >> 4] + 2048;
-        const int aj = u >> 7;
-        const int frac = u - (aj << 7);
-        const int h = (lb == 2 || lb2 == 2) ? 4 : lb * 2 + lb2;
-        uint16_t* ar = s_apm + (c * kApmHist + h) * kApmCells + aj;
-        const int a0 = ar[0], a1 = ar[1];
-        const int pa = (a0 * (128 - frac) + a1 * frac) >> 7;
-        const int pb = clampi((pmix + pa) >> 1, 1, 65535);
-        ar[0] = static_cast<uint16_t>(a0 + (((tgt - a0) * (128 - frac)) >> 13));
-        ar[1] = static_cast<uint16_t>(a1 + (((tgt - a1) * frac) >> 13));  // >> (7 + kApmRate)
-        held_p1 = s_squash[s_stretch[pb >> 4] + 2048];
-        held_bit = bit;
-        held = true;
-
-        // hand over to the next bin
-        if (j + 1 < n && static_cast<int>(en_n.x) == slot) rw_n = rw_new;
-        if (j + 1 < n && c_n == c) {
-          wa_n = na;
-          wb_n = nb;
-        }
+        if (static_cast<int>(en_n.x) == slot) rw_n = rw_new;
         en = en_n;
         rw = rw_n;
-        wa = wa_n;
-        wb = wb_n;
       }
+      __syncwarp();  // every thread's copy of the rows is in the ring
+
+      // parallel phase, a bin a thread: the mixer's inputs from the row as
+      // read (counter probability, CABAC probability, fast counter, last
+      // two bits of this slot), the APM row (class, history) and the bit
+      if (lane < n) {
+        const uint2 r = *reinterpret_cast<const uint2*>(oa + lane);
+        const uint4 e = s_tile[lane];
+        const int lb = r.x >> 30, lb2 = (r.y >> 10) & 3;
+        const int c = static_cast<int>((e.y >> 16) & 0xFFu);
+        const int bit = static_cast<int>(e.y >> 24);
+        const int h = (lb == 2 || lb2 == 2) ? 4 : lb * 2 + lb2;
+        oa[lane] = make_int4(
+            counter_stretch(r.x & 0x7FFF, (r.x >> 15) & 0x7FFF, s_stretch),
+            static_cast<int>(e.z), s_pf[r.y & 0x3FF],
+            lb == 2 ? 0 : (lb == 1 ? 256 : -256));
+        oa[32 + lane] = make_int4(
+            lb2 == 2 ? 0 : (lb2 == 1 ? 128 : -128), c,
+            static_cast<int>((static_cast<uint32_t>(c * kApmHist + h) << 16) |
+                             (static_cast<uint32_t>(bit) << 31)),
+            bit << 16);
+      }
+      out.count[pos.slot] = n;
+      mbar_arrive(out.full + pos.slot);
+      pos.next();
     }
     __syncwarp();  // the next tile's entries overwrite this one's
   }
-  coder_put(cd, held, held_bit, held_p1, to, co, writer);
+  mbar_wait(out.empty + pos.slot, pos.parity ^ 1u, waits);
+  out.count[pos.slot] = -1;
+  mbar_arrive(out.full + pos.slot);
+}
 
-  // shortest-terminator flush: round low up to the next 2^24 multiple,
-  // fold its carry into pend, emit the revealed byte and the flush event
+// The mixer stage: each bin's inputs -> pmix on ring `out`, the class's
+// weights updated on the pre-APM error.
+__device__ __forceinline__ void mixer_stage(const uint16_t* s_squash,
+                                            int4* s_wts, Ring in, Ring out,
+                                            int lane, int& waits) {
+  for (int k = lane; k < kNCls * 2; k += 32)
+    s_wts[k] = (k & 1) ? make_int4(0, 0, 0, 0) : make_int4(24576, 24576, 0, 0);
+  __syncwarp();
+  int unused = 0;
+  for (Pos pos;; pos.next()) {
+    mbar_wait(in.full + pos.slot, pos.parity, waits);
+    const int n = in.count[pos.slot];
+    mbar_wait(out.empty + pos.slot, pos.parity ^ 1u, unused);
+    out.count[pos.slot] = n;
+    if (n < 0) {
+      mbar_arrive(out.full + pos.slot);
+      return;
+    }
+    const int4* ia = reinterpret_cast<const int4*>(in.data) + pos.slot * 64;
+    uint32_t* oe = reinterpret_cast<uint32_t*>(out.data) + pos.slot * 32;
+    int4 A = ia[0], B = ia[32];
+    int4 wa = s_wts[B.y * 2], wb = s_wts[B.y * 2 + 1];
+    for (int j = 0; j < n; ++j) {
+      const int x0 = A.x, x1 = A.y, x3 = A.z, x4 = A.w;
+      const int x5 = B.x, c = B.y;
+
+      // the next bin's inputs and weights, loaded before this bin's are
+      // stored (forwarded below when the class repeats; the last bin
+      // forwards to nothing)
+      const int jn = j + 1 < n ? j + 1 : j;
+      const int4 A_n = ia[jn], B_n = ia[32 + jn];
+      const int c_n = B_n.y;
+      int4 wa_n = s_wts[c_n * 2];
+      int4 wb_n = s_wts[c_n * 2 + 1];
+
+      const int w0 = wa.x, w1 = wa.y, w2 = wa.z, w3 = wa.w, w4 = wb.x, w5 = wb.y;
+      int dot = ((w0 >> 6) * x0 + (w1 >> 6) * x1 + (w2 >> 6) * 77 +
+                 (w3 >> 6) * x3 + (w4 >> 6) * x4 + (w5 >> 6) * x5) >> 10;
+      dot = clampi(dot, -2048, 2047);
+      const int pmix = s_squash[dot + 2048];
+      oe[j] = static_cast<uint32_t>(pmix) | static_cast<uint32_t>(B.z);
+
+      // the mixer learns on its pre-APM output
+      const int err = B.w - pmix;
+      int4 na, nb;
+      na.x = clampi(w0 + ((err * x0) >> 14), -kWClip, kWClip);
+      na.y = clampi(w1 + ((err * x1) >> 14), -kWClip, kWClip);
+      na.z = clampi(w2 + ((err * 77) >> 14), -kWClip, kWClip);
+      na.w = clampi(w3 + ((err * x3) >> 14), -kWClip, kWClip);
+      nb.x = clampi(w4 + ((err * x4) >> 14), -kWClip, kWClip);
+      nb.y = clampi(w5 + ((err * x5) >> 14), -kWClip, kWClip);
+      nb.z = nb.w = 0;
+      s_wts[c * 2] = na;
+      s_wts[c * 2 + 1] = nb;
+
+      if (c_n == c) {
+        wa_n = na;
+        wb_n = nb;
+      }
+      A = A_n;
+      B = B_n;
+      wa = wa_n;
+      wb = wb_n;
+    }
+    mbar_arrive(in.empty + pos.slot);
+    mbar_arrive(out.full + pos.slot);
+  }
+}
+
+// The APM stage: pmix -> p1 on ring `out`, through the (class, history)
+// row's two cells around stretch(pmix), which learn from the bit.
+__device__ __forceinline__ void apm_stage(const int16_t* s_stretch,
+                                          const uint16_t* s_squash,
+                                          uint16_t* s_apm,
+                                          const int32_t* apm_row, Ring in,
+                                          Ring out, int lane, int& waits) {
+  const uint16_t cell = static_cast<uint16_t>(apm_row[lane]);
+  const uint16_t cell32 = static_cast<uint16_t>(apm_row[kApmCells - 1]);
+  for (int r = 0; r < kNCls * kApmHist; ++r) {
+    // 33 cells a row: thread 0 writes the last one too
+    s_apm[r * kApmCells + lane] = cell;
+    if (lane == 0) s_apm[r * kApmCells + kApmCells - 1] = cell32;
+  }
+  __syncwarp();
+  int unused = 0;
+  for (Pos pos;; pos.next()) {
+    mbar_wait(in.full + pos.slot, pos.parity, waits);
+    const int n = in.count[pos.slot];
+    mbar_wait(out.empty + pos.slot, pos.parity ^ 1u, unused);
+    out.count[pos.slot] = n;
+    if (n < 0) {
+      mbar_arrive(out.full + pos.slot);
+      return;
+    }
+    const uint32_t* ie = reinterpret_cast<const uint32_t*>(in.data) + pos.slot * 32;
+    uint32_t* oe = reinterpret_cast<uint32_t*>(out.data) + pos.slot * 32;
+    uint32_t e = ie[0];
+    int u = s_stretch[(e & 0xFFFFu) >> 4] + 2048;
+    for (int j = 0; j < n; ++j) {
+      const int pmix = static_cast<int>(e & 0xFFFFu);
+      const int arow = static_cast<int>((e >> 16) & 0x7FFFu);
+      const int bit = static_cast<int>(e >> 31);
+      const int tgt = bit << 16;
+
+      // the next bin's bucket, before this bin's cells are stored
+      const int jn = j + 1 < n ? j + 1 : j;
+      const uint32_t e_n = ie[jn];
+      const int u_n = s_stretch[(e_n & 0xFFFFu) >> 4] + 2048;
+
+      // interpolate between two cells of the (class, history) row
+      const int aj = u >> 7;
+      const int frac = u - (aj << 7);
+      uint16_t* ar = s_apm + arow * kApmCells + aj;
+      const int a0 = ar[0], a1 = ar[1];
+      const int pa = (a0 * (128 - frac) + a1 * frac) >> 7;
+      const int pb = clampi((pmix + pa) >> 1, 1, 65535);
+      ar[0] = static_cast<uint16_t>(a0 + (((tgt - a0) * (128 - frac)) >> 13));
+      ar[1] = static_cast<uint16_t>(a1 + (((tgt - a1) * frac) >> 13));  // >> (7 + kApmRate)
+      const int p1 = s_squash[s_stretch[pb >> 4] + 2048];
+      oe[j] = static_cast<uint32_t>(p1) | (static_cast<uint32_t>(bit) << 16);
+      e = e_n;
+      u = u_n;
+    }
+    mbar_arrive(in.empty + pos.slot);
+    mbar_arrive(out.full + pos.slot);
+  }
+}
+
+// The coder stage: (p1, bit) -> tokens, then the shortest-terminator flush.
+__device__ __forceinline__ void coder_stage(Ring in, int32_t* to, int32_t* co,
+                                            int32_t* count, int s, int lane,
+                                            int& waits) {
+  const bool writer = lane == 0;
+  Coder cd{0u, 0xFFFFFFFFu, 0, 0};
+  for (Pos pos;; pos.next()) {
+    mbar_wait(in.full + pos.slot, pos.parity, waits);
+    const int n = in.count[pos.slot];
+    if (n < 0) break;
+    const uint32_t* ie = reinterpret_cast<const uint32_t*>(in.data) + pos.slot * 32;
+    for (int j = 0; j < n; ++j) {
+      const uint32_t e = ie[j];
+      coder_put(cd, static_cast<int>(e >> 16), static_cast<int>(e & 0xFFFFu),
+                to, co, writer);
+    }
+    mbar_arrive(in.empty + pos.slot);
+  }
+  // round low up to the next 2^24 multiple, fold its carry into pend, emit
+  // the revealed byte and the flush event
   if (writer) {
     const uint32_t low_r = (cd.low + (kTop - 1)) & 0xFF000000u;
     to[cd.pos] = static_cast<int32_t>(low_r >> 24);
@@ -407,53 +594,131 @@ est_encode_kernel(const int32_t* __restrict__ slots,
 }
 
 template <bool kRowsShared>
+__global__ void __launch_bounds__(kMaxTraces * kStages * 32)
+est_encode_kernel(const int32_t* __restrict__ slots,
+                  const int32_t* __restrict__ bits,
+                  const int32_t* __restrict__ pcabs,
+                  const int32_t* __restrict__ valid,
+                  const int32_t* __restrict__ limits,
+                  const int32_t* __restrict__ cls,
+                  const int32_t* __restrict__ tbl,
+                  const int32_t* __restrict__ apm_row,
+                  const int32_t* __restrict__ pf_tab,
+                  int32_t* __restrict__ tok, int32_t* __restrict__ car,
+                  int32_t* __restrict__ count, uint2* rows_scratch,
+                  int32_t* __restrict__ waits, int S, int T, int NS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_stretch = reinterpret_cast<int16_t*>(smem);
+  uint16_t* s_squash = reinterpret_cast<uint16_t*>(smem + kTbl * 2);
+  int16_t* s_pf = reinterpret_cast<int16_t*>(smem + kTbl * 4);
+  for (int k = threadIdx.x; k < kTbl; k += blockDim.x) {
+    s_stretch[k] = static_cast<int16_t>(tbl[2 * k]);
+    s_squash[k] = static_cast<uint16_t>(tbl[2 * k + 1]);
+  }
+  for (int k = threadIdx.x; k < kPfTab; k += blockDim.x)
+    s_pf[k] = static_cast<int16_t>(pf_tab[k]);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int traces = blockDim.x / (32 * kStages);
+  const int tb = warp / kStages;  // the trace's place in the block
+  const int stage = (warp + tb) % kStages;
+  const int trace_bytes = kTraceFixedBytes + (kRowsShared ? rows_bytes(NS) : 0);
+  unsigned char* base = smem + kTableBytes + tb * trace_bytes;
+  unsigned char* rings = base + kTileBytes + kWtsBytes + kApmBytes;
+  int* counts = reinterpret_cast<int*>(rings + kRmBytes + kMaBytes + kAcBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      rings + kRmBytes + kMaBytes + kAcBytes + kCountBytes);
+  if (warp % kStages == 0 && lane < 3 * kRing * 2) mbar_init(bars + lane, 32);
+  __syncthreads();
+
+  // callers sort traces by length, shortest first: walk them from the
+  // back, so that the longest chains start first and the tail is short
+  const int s = S - 1 - (blockIdx.x * traces + tb);
+  if (s < 0) return;
+
+  // ring r: its tiles, counts, full barriers, then empty barriers
+  auto ring = [&](int r, unsigned char* data) {
+    return Ring{data, counts + r * kRing, bars + r * 2 * kRing,
+                bars + r * 2 * kRing + kRing};
+  };
+  const Ring rm = ring(0, rings);
+  const Ring ma = ring(1, rings + kRmBytes);
+  const Ring ac = ring(2, rings + kRmBytes + kMaBytes);
+
+  int waited = 0;
+  if (stage == 0) {
+    uint2* rows = kRowsShared
+        ? reinterpret_cast<uint2*>(base + kTraceFixedBytes)
+        : rows_scratch + static_cast<size_t>(s) * NS;
+    rows_stage<kRowsShared>(
+        slots, bits, pcabs, valid, limits + static_cast<size_t>(s) * NS,
+        cls + static_cast<size_t>(s) * NS, s_stretch, s_pf,
+        reinterpret_cast<uint4*>(base), rows, rm, static_cast<size_t>(s) * T,
+        T, NS, lane, waited);
+  } else if (stage == 1) {
+    mixer_stage(s_squash, reinterpret_cast<int4*>(base + kTileBytes), rm, ma,
+                lane, waited);
+  } else if (stage == 2) {
+    apm_stage(s_stretch, s_squash,
+              reinterpret_cast<uint16_t*>(base + kTileBytes + kWtsBytes),
+              apm_row, ma, ac, lane, waited);
+  } else {
+    const size_t seg = static_cast<size_t>(s) * (2 * static_cast<size_t>(T) + 2);
+    coder_stage(ac, tok + seg, car + seg, count, s, lane, waited);
+  }
+  if (waits != nullptr && lane == 0) waits[s * kStages + stage] = waited;
+}
+
+template <bool kRowsShared>
 cudaError_t launch(const void* slots, const void* bits, const void* pcabs,
                    const void* valid, const void* limits, const void* cls,
                    const void* tbl, const void* apm_row, const void* pf_tab,
                    void* tok, void* car, void* count, void* rows_scratch,
-                   int S, int T, int NS, int warps, int smem,
+                   void* waits, int S, int T, int NS, int traces, int smem,
                    cudaStream_t stream) {
   auto kernel = est_encode_kernel<kRowsShared>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(S + warps - 1) / warps, warps * 32, smem, stream>>>(
+  kernel<<<(S + traces - 1) / traces, traces * kStages * 32, smem, stream>>>(
       static_cast<const int32_t*>(slots), static_cast<const int32_t*>(bits),
       static_cast<const int32_t*>(pcabs), static_cast<const int32_t*>(valid),
       static_cast<const int32_t*>(limits), static_cast<const int32_t*>(cls),
       static_cast<const int32_t*>(tbl), static_cast<const int32_t*>(apm_row),
       static_cast<const int32_t*>(pf_tab), static_cast<int32_t*>(tok),
       static_cast<int32_t*>(car), static_cast<int32_t*>(count),
-      static_cast<uint2*>(rows_scratch), S, T, NS);
+      static_cast<uint2*>(rows_scratch), static_cast<int32_t*>(waits), S, T,
+      NS);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// warps: traces a block; rows_shared: estimator rows in shared memory (1) or
-// in rows_scratch (0); smem: the block's dynamic shared memory in bytes, as
-// est_coder.est_launch_plan computed it (checked here against the kernel's
-// own layout)
+// traces: traces a block (kStages warps each); rows_shared: estimator rows
+// in shared memory (1) or in rows_scratch (0); smem: the block's dynamic
+// shared memory in bytes, as est_coder.est_launch_plan computed it (checked
+// here against the kernel's own layout); waits: int32 [S, 4] or null
 extern "C" int est_encode_launch(const void* slots, const void* bits,
                                  const void* pcabs, const void* valid,
                                  const void* limits, const void* cls,
                                  const void* tbl, const void* apm_row,
                                  const void* pf_tab, void* tok, void* car,
-                                 void* count, void* rows_scratch, int S, int T,
-                                 int NS, int warps, int rows_shared, int smem,
-                                 void* stream) {
-  if (warps < 1 || warps > kMaxWarps ||
+                                 void* count, void* rows_scratch, void* waits,
+                                 int S, int T, int NS, int traces,
+                                 int rows_shared, int smem, void* stream) {
+  if (traces < 1 || traces > kMaxTraces ||
       smem != kTableBytes +
-                  warps * (kWarpFixedBytes + (rows_shared ? rows_bytes(NS) : 0)))
+                  traces * (kTraceFixedBytes + (rows_shared ? rows_bytes(NS) : 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       rows_shared
           ? launch<true>(slots, bits, pcabs, valid, limits, cls, tbl, apm_row,
-                         pf_tab, tok, car, count, rows_scratch, S, T, NS, warps,
-                         smem, st)
+                         pf_tab, tok, car, count, rows_scratch, waits, S, T,
+                         NS, traces, smem, st)
           : launch<false>(slots, bits, pcabs, valid, limits, cls, tbl, apm_row,
-                          pf_tab, tok, car, count, rows_scratch, S, T, NS, warps,
-                          smem, st);
+                          pf_tab, tok, car, count, rows_scratch, waits, S, T,
+                          NS, traces, smem, st);
   return static_cast<int>(err);
 }

@@ -108,7 +108,7 @@ def load():
     lib.lane_encode_streams_idx_launch.restype = ctypes.c_int
     lib.unpack_p1_idx_launch.argtypes = [ptr] * 3 + [ctypes.c_longlong, ptr]
     lib.unpack_p1_idx_launch.restype = ctypes.c_int
-    lib.est_encode_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 6 + [ptr]
+    lib.est_encode_launch.argtypes = [ptr] * 14 + [ctypes.c_int] * 6 + [ptr]
     lib.est_encode_launch.restype = ctypes.c_int
     lib.est_unpack_launch.argtypes = (
         [ptr, ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ptr] * 5)

@@ -1,5 +1,5 @@
 """Est-on-device entropy stage: the adaptive model and the range coder run
-on the device, one serial trace per warp (PyTorch + CUDA).
+on the device, one serial trace per block of stage warps (PyTorch + CUDA).
 
 Counterpart of avrecode_tpu/ops/pallas_coder.py.  The kernel emits RAW
 (byte, carry) tokens, one compacted segment per trace; the host folds the
@@ -46,10 +46,17 @@ SMEM_BLOCK_MAX = 227 * 1024  # dynamic shared memory a block may ask for
 SMEM_SM = 228 * 1024  # shared memory of one SM
 SMEM_BLOCK_RESERVED = 1024  # what the card keeps of it for each block
 TABLE_BYTES = 4096 * 2 + 4096 * 2 + 1024 * 2  # stretch, squash, fast stretch
-WARP_FIXED_BYTES = (32 * 16  # one tile of per-bin entries
-                    + N_CLS * 8 * 4  # mixer weights, 8 int32 a class
-                    + -(-N_CLS * APM_HIST * APM_CELLS * 2 // 16) * 16)  # APM
-MAX_WARPS = 8
+STAGE_WARPS = 4  # warps a trace: rows, mixer, APM, coder
+RING_TILES = 4  # 32-bin tiles a ring between two stages
+TRACE_FIXED_BYTES = (32 * 16  # the rows warp's tile of per-bin entries
+                     + N_CLS * 8 * 4  # mixer weights, 8 int32 a class
+                     + -(-N_CLS * APM_HIST * APM_CELLS * 2 // 16) * 16  # APM
+                     # rings rows -> mixer (32 B a bin), mixer -> APM and
+                     # APM -> coder (4 B a bin), each tile's bins, and a
+                     # full and an empty mbarrier a tile
+                     + RING_TILES * 32 * (32 + 4 + 4)
+                     + 3 * RING_TILES * 4 + 3 * RING_TILES * 2 * 8)
+MAX_TRACES = 8  # traces a block: 32 warps, so 64 registers a thread at most
 
 
 def rows_bytes(NS):
@@ -99,26 +106,27 @@ def cut_groups(lengths, budget):
 
 
 def est_launch_plan(NS):
-    """How the kernel is launched for NS slots a trace: (warps a block,
+    """How the kernel is launched for NS slots a trace: (traces a block,
     estimator rows in shared memory?, dynamic shared memory in bytes).
 
-    A warp codes one trace.  Its rows go to shared memory when a block of
-    one warp can hold them beside the fixed state, to global scratch
-    otherwise.  The warp count is the one that puts most traces on an SM
-    at once (the smaller count on a tie, for the finer grain)."""
+    A trace is coded by STAGE_WARPS warps, one a stage.  Its rows go to
+    shared memory when a block of one trace can hold them beside the fixed
+    state and rings, to global scratch otherwise.  The trace count is the
+    one that puts most traces on an SM at once (the smaller count on a tie,
+    for the finer grain)."""
     for rows_shared in (True, False):
-        per_warp = WARP_FIXED_BYTES + (rows_bytes(NS) if rows_shared else 0)
+        per_trace = TRACE_FIXED_BYTES + (rows_bytes(NS) if rows_shared else 0)
         best = None
-        for warps in range(1, MAX_WARPS + 1):
-            smem = TABLE_BYTES + warps * per_warp
+        for traces in range(1, MAX_TRACES + 1):
+            smem = TABLE_BYTES + traces * per_trace
             if smem > SMEM_BLOCK_MAX:
                 break
-            on_sm = SMEM_SM // (smem + SMEM_BLOCK_RESERVED) * warps
+            on_sm = SMEM_SM // (smem + SMEM_BLOCK_RESERVED) * traces
             if best is None or on_sm > best[0]:
-                best = (on_sm, warps, smem)
+                best = (on_sm, traces, smem)
         if best is not None:
             return best[1], rows_shared, best[2]
-    raise AssertionError("the fixed state of one warp fits a block")
+    raise AssertionError("the fixed state of one trace fits a block")
 
 
 @functools.cache
@@ -219,17 +227,27 @@ def est_encode(slots, bits, pcabs, limits, valid, cls):
 est_encode.launches = 0
 
 
-def _launch(slots, bits, pcabs, limits, valid, cls, tok, car, count):
+def _launch(slots, bits, pcabs, limits, valid, cls, tok, car, count,
+            waits=None):
     """Launch the CUDA kernel on a checked problem (S >= 1) into zeroed
-    tok/car [S, 2T+2] and count [S]; raises if it cannot build or launch."""
+    tok/car [S, 2T+2] and count [S]; raises if it cannot build or launch.
+    waits: None, or an int32 [S, STAGE_WARPS] CUDA tensor that takes, per
+    trace and stage, the ring tiles on which the stage found its ring not
+    ready (the rows stage a full ring to the mixer, the others an empty
+    input ring): the largest count names the stage that sets the pace."""
     from ._build import load
 
     lib = load()
     dev = slots.device
     S, T = slots.shape
     NS = limits.shape[1]
+    if waits is not None and (tuple(waits.shape) != (S, STAGE_WARPS)
+                              or waits.dtype != torch.int32
+                              or waits.device != dev
+                              or not waits.is_contiguous()):
+        raise ValueError(f"waits must be int32 [S, {STAGE_WARPS}] on {dev}")
     tbl, apm_row, pf_tab = _kernel_tables(dev)
-    warps, rows_shared, smem = est_launch_plan(NS)
+    traces, rows_shared, smem = est_launch_plan(NS)
     # estimator rows that shared memory cannot hold, initialised by the kernel
     rows = torch.empty((0 if rows_shared else S, NS), dtype=torch.int64,
                        device=dev)
@@ -239,7 +257,8 @@ def _launch(slots, bits, pcabs, limits, valid, cls, tok, car, count):
             valid.data_ptr(), limits.data_ptr(), cls.data_ptr(),
             tbl.data_ptr(), apm_row.data_ptr(), pf_tab.data_ptr(),
             tok.data_ptr(), car.data_ptr(), count.data_ptr(),
-            rows.data_ptr(), S, T, NS, warps, int(rows_shared), smem,
+            rows.data_ptr(), None if waits is None else waits.data_ptr(),
+            S, T, NS, traces, int(rows_shared), smem,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
@@ -414,7 +433,9 @@ def encode_traces_est(traces, device=None, mesh=None):
     range check's read-back) est_launch (est_collect adds est_collect and
     est_finalize); the groups (stats "est_launches"), the groups closed
     because the card's budget was reached ("est_memory_cuts", 0 on the
-    CPU), traces ("est_traces"), padded bins S x T ("est_padded_bins") and
+    CPU), traces ("est_traces"; "est_stage_traces" those the stage-warp
+    kernel coded, all of them on a card, none on the CPU), padded bins S x T
+    ("est_padded_bins") and
     stream bytes out ("est_stored") are counted.
 
     mesh (parallel/mesh.make_mesh; not together with device; a device is a
@@ -463,6 +484,8 @@ def _dispatch_est(traces, dev):
         del prob  # the rows go back to the allocator before the next cut
         spans.count("est_launches")
         spans.count("est_traces", S)
+        if cuda:  # coded by the stage-warp kernel
+            spans.count("est_stage_traces", S)
         spans.count("est_padded_bins", S * T)
         if cuda:
             yield

@@ -173,7 +173,7 @@ def device_compress(data, mesh=None, scope=None, substream_bins=4096,
 
     substream_bins=0 selects the est-on-device path: the device runs the
     adaptive model itself (counters, mixer, APM) and the range coder, one
-    trace per warp, into a v1 container.
+    trace per block of stage warps, into a v1 container.
 
     A device is a mesh of one: a mesh cuts the traces into contiguous
     shards, and each shard runs the one-device stage of its path.

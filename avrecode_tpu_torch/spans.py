@@ -60,7 +60,7 @@ KEYS = (
     "envelope_s", "serialise_s", "dispatches", "bins", "trace_bytes",
     "est_pack_s", "est_upload_s", "est_launch_s", "est_collect_s",
     "est_finalize_s", "est_launches", "est_traces", "est_padded_bins",
-    "est_stored", "est_wait_s", "est_memory_cuts",
+    "est_stored", "est_wait_s", "est_memory_cuts", "est_stage_traces",
 )
 
 _clock = time.perf_counter_ns

@@ -1084,8 +1084,11 @@ def est_problem(kind, S, T, NS, seed):
     last three places of one tile; "oneslot": every bin hits slot NS - 1;
     "sweep": trace s hammers slot 0 with 99.5% ones under the halving limit
     SWEEP_LIMITS[s % 8], so that with T > 0x8000 the counters reach every
-    limit and halve.  Row 0 has a ragged tail, and every third pcab is 0
-    (no CABAC input)."""
+    limit and halve; "runs": runs of 1-70 bins, each one slot repeated, or
+    distinct slots of one class (slots 16k to 16k + 15 share a class), or
+    random slots, so that consecutive bins share a slot, a class or both
+    across tile edges and ring wraps.  Row 0 has a ragged tail, and every
+    third pcab is 0 (no CABAC input)."""
     rng = np.random.default_rng(seed)
     slots = rng.integers(0, NS, (S, T))
     if kind == "skew":
@@ -1111,6 +1114,20 @@ def est_problem(kind, S, T, NS, seed):
             valid[s, tile * 32 + 29: tile * 32 + 32] = 1
     elif kind == "oneslot":
         slots[:] = NS - 1
+    elif kind == "runs":
+        cls = (np.arange(NS)[None, :] // 16 % tec.N_CLS).repeat(S, 0)
+        for s in range(S):
+            i = 0
+            while i < T:
+                n = int(rng.integers(1, 71))
+                way = rng.integers(0, 3)
+                if way == 0:  # one slot: its row and its class repeat
+                    slots[s, i: i + n] = rng.integers(0, NS)
+                elif way == 1:  # distinct slots of one class
+                    base = int(rng.integers(0, -(-NS // 16))) * 16
+                    slots[s, i: i + n] = np.minimum(
+                        base + np.arange(n)[: T - i] % 16, NS - 1)
+                i += n
     elif kind == "sweep":
         slots[:] = 0
         slots[:, ::50] = NS - 1
@@ -1119,10 +1136,13 @@ def est_problem(kind, S, T, NS, seed):
     return slots, bits, pcabs, limits, valid, cls
 
 
-# (kind, S, T, NS): the cases of the first est kernel, then what one warp
-# per trace over 32-bin tiles can get wrong.  est_launch_plan puts 7, 6, 3,
-# 2, 1 and 7 warps in a block at NS = 64, 512, 4096, 2108, 3494 and 30000,
-# and keeps the rows in global scratch at 30000.
+# (kind, S, T, NS): the cases of the first est kernel, then what stage
+# warps over 32-bin tiles and rings of RING_TILES tiles can get wrong.
+# est_launch_plan puts 6, 5, 3, 4, 3 and 6 traces in a block at NS = 64,
+# 512, 4096, 2108, 3494 and 30000, keeps the rows in global scratch at
+# 30000, and in shared memory up to EST_ROWS_SHARED_NS (the two sides of
+# that budget: tests/test_torch_kernel_host.py holds the plan to them).
+EST_ROWS_SHARED_NS = 22442
 EST_CASES = [
     ("random", 64, 4096, 1024), ("skew", 64, 2048, 64),
     ("holes", 64, 2048, 512), ("random", 16, 2048, 4096),
@@ -1131,6 +1151,12 @@ EST_CASES = [
     ("random", 4, 1, 8), ("random", 4, 5, 8), ("random", 4, 31, 8),
     ("random", 4, 33, 8), ("tail", 40, 250, 32), ("oneslot", 8, 1500, 8),
     ("oneslot", 3, 700, 30000),
+    # slot and class runs across tile edges and ring wraps, 128 tiles a
+    # trace, several traces a block with a part-filled last block, and
+    # both sides of the rows' shared-memory budget
+    ("runs", 5, 4101, 256), ("runs", 13, 3000, 64),
+    ("runs", 3, 700, EST_ROWS_SHARED_NS),
+    ("runs", 3, 700, EST_ROWS_SHARED_NS + 1),
 ]
 EST_SWEEP = ("sweep", 8, 0x8000 + 64, 4)
 
@@ -1160,9 +1186,10 @@ def phase_est_kernel_vs_plain(dev, cases):
         err = max_abs_diff(got, ref)
         worst = max(worst, err)
         carries, ffs = token_stats(*ref)
-        warps, rows_shared, smem = tec.est_launch_plan(NS)
-        log(f"est kernel vs plain {kind} S={S} T={T} NS={NS} ({warps} warps "
-            f"a block, rows in {'shared' if rows_shared else 'global'} "
+        traces, rows_shared, smem = tec.est_launch_plan(NS)
+        log(f"est kernel vs plain {kind} S={S} T={T} NS={NS} ({traces} "
+            f"traces of {tec.STAGE_WARPS} stage warps a block, rows in "
+            f"{'shared' if rows_shared else 'global'} "
             f"memory, {smem} B): max_abs_err={err} tokens="
             f"{int(ref[2].sum())} carries={carries} ff_bytes={ffs} "
             f"(first call {t_k:.3f} s, plain {t_p:.1f} s)")
@@ -1194,17 +1221,30 @@ def phase_est_main_path(dev, clips):
                 f"(device_compress {dt * 1e3:.1f} ms)")
 
 
-def est_kernel_only_ms(prob, reps):
+def est_kernel_only_ms(prob, reps, waits=None):
     """The est kernel's own time on a checked problem (no range check, no
-    zero fill), and the zero fill's, by CUDA events."""
+    zero fill), and the zero fill's, by CUDA events; the warm-up launch
+    fills `waits` (est_coder._launch) where it is given."""
     S, T = prob[0].shape
     tok = torch.zeros((S, 2 * T + 2), dtype=torch.int32, device=prob[0].device)
     car = torch.zeros_like(tok)
     count = torch.zeros(S, dtype=torch.int32, device=tok.device)
-    tec._launch(*prob, tok, car, count)  # warm-up
+    tec._launch(*prob, tok, car, count, waits)  # warm-up
     kernel = cuda_ms(lambda: tec._launch(*prob, tok, car, count), reps)
     fill = cuda_ms(lambda: (tok.zero_(), car.zero_()), reps)
     return kernel, fill
+
+
+def stage_waits(waits, T):
+    """One line of a launch's stage waits (est_coder._launch's int32 [S,
+    STAGE_WARPS]): per stage the tiles summed over the traces and their
+    share of the tiles the traces handed on (at most T / 32 each)."""
+    w = waits.sum(0).tolist()
+    tiles = waits.shape[0] * -(-T // 32)
+    names = ("rows (ring to the mixer full)", "mixer (input empty)",
+             "APM (input empty)", "coder (input empty)")
+    return "; ".join(f"{n} {k} tiles, {k / tiles:.1%}"
+                     for n, k in zip(names, w))
 
 
 def phase_est_full(dev, clips, S, card):
@@ -1264,10 +1304,12 @@ def phase_est_full(dev, clips, S, card):
     longest = max(native.extract(data, "gop", want_slots=True)[3], key=len)
     prob = tec.from_numpy_traces(
         *tec.pack_rows([longest], 1, len(longest), len(longest.limits)), dev)
-    one, _ = est_kernel_only_ms(prob, 3)
+    waits = torch.zeros((1, tec.STAGE_WARPS), dtype=torch.int32, device=dev)
+    one, _ = est_kernel_only_ms(prob, 3, waits)
     log(f"est longest gop trace (mbaff_b.mkv, {len(longest)} bins, one "
-        f"warp) on {card}: kernel alone {one:.3f} ms = "
-        f"{one * 1e3 / len(longest):.3f} us/bin")
+        f"trace) on {card}: kernel alone {one:.3f} ms = "
+        f"{one * 1e3 / len(longest):.3f} us/bin; waits: "
+        f"{stage_waits(waits, len(longest))}")
 
     # one trace replicated S times: what more traces cost the longest one
     longest = max(base, key=len)
@@ -1296,6 +1338,35 @@ def archive_group(S=ARCHIVE_S):
         with open(path, "rb") as f:
             traces += native.extract(f.read(), "gop", want_slots=True)[3]
     return [traces[i % len(traces)] for i in range(S)]
+
+
+def archive_problem(dev, group):
+    """The est problem of a group of traces (archive_group) on `dev`, its
+    rows unpacked on the card from the records as the est path does."""
+    S, T = len(group), max(map(len, group))
+    NS = max(len(t.limits) for t in group)
+    slots, bits, pcabs, valid = tec.est_unpack(
+        [tec._upload(tec.trace_records(t), dev) for t in group], S, T)
+    limits, cls = (tec._upload(a, dev) for a in tec.slot_tables(group, S, NS))
+    return slots, bits, pcabs, limits, valid, cls
+
+
+def phase_est_archive(dev, card, group):
+    """The est kernel on the archive cell's group (archive_group,
+    archive_problem): the kernel alone by CUDA events, and its stage
+    waits -> ms."""
+    prob = archive_problem(dev, group)
+    S, T = prob[0].shape
+    NS = prob[3].shape[1]
+    waits = torch.zeros((S, tec.STAGE_WARPS), dtype=torch.int32, device=dev)
+    ms, _ = est_kernel_only_ms(prob, 2, waits)
+    traces, rows_shared, smem = tec.est_launch_plan(NS)
+    log(f"est archive group [{S}, {T}] ({sum(map(len, group))} bins, NS="
+        f"{NS}; {traces} traces a block, rows in "
+        f"{'shared' if rows_shared else 'global'} memory, {smem} B) on "
+        f"{card}: kernel alone {ms:.3f} ms = {ms * 1e3 / T:.4f} us per bin "
+        f"step; waits: {stage_waits(waits, T)}")
+    return ms
 
 
 def phase_est_unpack(dev, card):
@@ -2152,6 +2223,7 @@ def main():
     full_err, est_ms, est_plain_ms, est_bound, est_by = phase_est_full(
         dev, CLIPS, EST_S, card)
     un_err, un_ms, un_plain_ms, un_bound, un_by = phase_est_unpack(dev, card)
+    phase_est_archive(dev, card, archive_group())
     clock.mark("6-8 est path")
 
     # 9 decode kernel vs plain on the card

@@ -83,7 +83,12 @@ The parts, all of them by default, in this order:
              stats, each run's wall, its est stage by the program's spans
              and counters (those the tree has), the est kernel's launches,
              traces a launch and groups cut by the card's memory, its peak
-             RSS and device peak; every container equal to the first
+             RSS and device peak; every container equal to the first;
+             then the longest recording's group (chip_smoke.archive_group)
+             through the est kernel alone, with each stage's waits (the
+             tiles on which the rows stage found its ring to the mixer
+             full, and the mixer, APM and coder their input ring empty):
+             the stage that sets the pace
 """
 
 import os
@@ -106,7 +111,8 @@ from avrecode_tpu_torch.utils.container import SCOPE_GOP, SCOPE_SLICE
 from chip_smoke import (
     BENCH_GROUPS, BENCH_SET, CLIPS, FULL_B, FULL_L, ROOT, PeakRSS,
     archive_group, bound_ms, card_line, cuda_ms, decompress_stages,
-    group_ring_bytes, lane_stage_split, log, tiled_problem, tiled_trace)
+    group_ring_bytes, lane_stage_split, log, phase_est_archive, tiled_problem,
+    tiled_trace)
 
 RUNS = 3
 ARCHIVE_GOPS = (24, 48, 32, 40)  # the archive cell's recordings, in GOPs
@@ -899,6 +905,9 @@ def archive_split(dev):
     for n_gops in ARCHIVE_GOPS:
         archive_recording(dev, b"".join(gops[i % len(gops)]
                                         for i in range(n_gops)), n_gops)
+    # the longest recording's one launch alone, with its stage waits: the
+    # stage that sets the pace
+    phase_est_archive(dev, card_line(), archive_group())
 
 
 def archive_recording(dev, data, n_gops):

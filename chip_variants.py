@@ -29,8 +29,9 @@ timed, and its wrong output is reported but not refused.
         u16 form of these very lanes (their indices unpacked), so that
         both forms are timed, and held equal, on one set of lanes
   unpack  the idx lanes through unpack_p1_idx alone (exact p1)
-  est   the clips' longest slice trace alone and 128 times, and the clips'
-        slice traces replicated to 1,024
+  est   the clips' longest slice trace alone and 128 times, the clips'
+        slice traces replicated to 1,024, and the archive cell's group of
+        48 GOP-long traces (chip_smoke.archive_group)
   decode  the streams of that full dispatch group and of its first 55
         lanes, 1,000 ragged lanes of random bytes, and one lane of 64,096
         bins from the host encoder
@@ -54,8 +55,9 @@ from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import lane_coder as tlc
 from avrecode_tpu_torch.ops import lane_decoder as tld
 from chip_smoke import (
-    CLIPS, ROOT, card_line, cuda_ms, decode_problem, lanes, log,
-    one_long_lane, squash_lanes, streams_diff, tiled_problem, tiled_trace)
+    CLIPS, ROOT, archive_group, archive_problem, card_line, cuda_ms,
+    decode_problem, lanes, log, one_long_lane, squash_lanes, streams_diff,
+    tiled_problem, tiled_trace)
 
 PTR = ctypes.c_void_p
 OUT_DIR = os.path.join(ROOT, "build", "variants")
@@ -152,21 +154,21 @@ def streams_equal(out, ref):
 
 
 def est_runner(lib):
-    lib.est_encode_launch.argtypes = [PTR] * 13 + [ctypes.c_int] * 6 + [PTR]
+    lib.est_encode_launch.argtypes = [PTR] * 14 + [ctypes.c_int] * 6 + [PTR]
     lib.est_encode_launch.restype = ctypes.c_int
 
     def run(prob, out):
         slots, bits, pcabs, limits, valid, cls = prob
         S, T = slots.shape
         NS = limits.shape[1]
-        warps, rows_shared, smem = tec.est_launch_plan(NS)
+        traces, rows_shared, smem = tec.est_launch_plan(NS)
         rows = torch.empty((0 if rows_shared else S, NS), dtype=torch.int64,
                            device=slots.device)
         err = lib.est_encode_launch(
             *(t.data_ptr() for t in (slots, bits, pcabs, valid, limits, cls,
                                      *tec._kernel_tables(slots.device), *out,
                                      rows)),
-            S, T, NS, warps, int(rows_shared), smem,
+            None, S, T, NS, traces, int(rows_shared), smem,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"est_encode_launch: cudaError {err}")
@@ -357,6 +359,9 @@ def est_kind(libs, dev):
         NS = max(len(t.limits) for t in ts)
         problems[f"{label} [{len(ts)}, {T}] NS={NS}"] = tec.from_numpy_traces(
             *tec.pack_rows(ts, len(ts), T, NS), dev)
+    prob = archive_problem(dev, archive_group())
+    S, T = prob[0].shape
+    problems[f"archive group [{S}, {T}] NS={prob[3].shape[1]}"] = prob
 
     def est_out(prob):
         S, T = prob[0].shape

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from avrecode_tpu_torch import codec
+from avrecode_tpu_torch import codec, spans
 from avrecode_tpu_torch.host import native
 from avrecode_tpu_torch.models.h264_model import _make_envelope
 from avrecode_tpu_torch.ops import est_coder as tec
@@ -314,7 +314,9 @@ def test_lane_kernel_rejects_misaligned_p1(cuda):
 
 # the first est kernel's cases, then chip_smoke's: slot counts on both sides
 # of the shared-memory budget, T under and off the 32-bin tile, valid bins
-# only in a tile's tail, one slot hit by every bin, counters at every limit
+# only in a tile's tail, one slot hit by every bin, slot and class runs
+# across tile edges and ring wraps, several traces a block, counters at
+# every limit
 @pytest.mark.parametrize("kind, S, T, NS", [
     ("random", 33, 1024, 300), ("skew", 8, 2048, 64), ("holes", 16, 1024, 128),
     ("random", 4, 512, 4096), *EST_CASES[4:], EST_SWEEP,
@@ -328,6 +330,34 @@ def test_est_kernel_matches_plain(cuda, kind, S, T, NS):
     for a, b in zip(got, tec.est_encode_plain(*prob)):
         assert a.device.type == "cuda" and a.dtype == torch.int32
         assert torch.equal(a, b)
+
+
+def test_est_gop_traces_on_the_stage_warps(cuda):
+    """The archive cell's shape at test size: GOP-long traces (the
+    benchmark's three small test GOPs at gop scope, native traces with
+    slot tables) through encode_traces_est as one group: every trace coded
+    by the stage-warp kernel (est_stage_traces), and the kernel's outputs
+    on the packed problem equal est_encode_plain's."""
+    if not native.available():
+        pytest.skip("native library not built")
+    traces = []
+    for i in (1, 2, 3):
+        path = os.path.join(os.path.dirname(__file__), "..", "benchmark",
+                            "tests", "data", f"gop{i}.264")
+        with open(path, "rb") as f:
+            traces += native.extract(f.read(), "gop", want_slots=True)[3]
+    stats = {}
+    with spans.call("est", stats):
+        streams = tec.encode_traces_est(traces, cuda)
+    assert stats["est_stage_traces"] == stats["est_traces"] == len(traces)
+    S, T = len(traces), max(map(len, traces))
+    NS = max(len(t.limits) for t in traces)
+    prob = tec.from_numpy_traces(*tec.pack_rows(traces, S, T, NS), cuda)
+    got = tec.est_encode(*prob)
+    want = tec.est_encode_plain(*prob)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert streams == tec.finalize_streams(*(t.cpu() for t in want))
 
 
 def test_broadcast_gop_on_the_main_path(cuda):
@@ -363,6 +393,8 @@ def test_est_main_path_launches_kernel(cuda):
         assert out == native.compress(data, scope=scope)
         # each group's rows unpacked on the card from its records, once
         assert tec.est_unpack.launches - unpacks == stats["est_launches"] > 0
+        # every trace coded by the stage-warp kernel
+        assert stats["est_stage_traces"] == stats["est_traces"] > 0
 
 
 def _records(lens, seed, dev):

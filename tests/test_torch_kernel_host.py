@@ -9,6 +9,7 @@ from avrecode_tpu.models.h264_model import _apm_row
 from avrecode_tpu.ops._mix_tables import SQUASH, STRETCH12
 from avrecode_tpu_torch.ops import est_coder as tec
 from avrecode_tpu_torch.ops import estimator as port_est
+from chip_smoke import EST_ROWS_SHARED_NS
 
 
 def _counter_step(c0, c1, bit, limit):
@@ -90,17 +91,18 @@ def test_tables_fit_the_kernels_narrow_types():
 @pytest.mark.parametrize("NS", [1, 2, 64, 511, 512, 1024, 2108, 3494, 4096,
                                 10000, 23000, 24000, 100000, 1 << 20])
 def test_est_launch_plan(NS):
-    warps, rows_shared, smem = tec.est_launch_plan(NS)
-    per_warp = tec.WARP_FIXED_BYTES + (tec.rows_bytes(NS) if rows_shared else 0)
-    assert 1 <= warps <= tec.MAX_WARPS
-    assert smem == tec.TABLE_BYTES + warps * per_warp <= tec.SMEM_BLOCK_MAX
+    traces, rows_shared, smem = tec.est_launch_plan(NS)
+    per_trace = tec.TRACE_FIXED_BYTES + (tec.rows_bytes(NS) if rows_shared
+                                         else 0)
+    assert 1 <= traces <= tec.MAX_TRACES
+    assert smem == tec.TABLE_BYTES + traces * per_trace <= tec.SMEM_BLOCK_MAX
     assert smem % 16 == 0 and tec.rows_bytes(NS) >= NS * 8
-    one_warp = tec.TABLE_BYTES + tec.WARP_FIXED_BYTES + tec.rows_bytes(NS)
-    assert rows_shared == (one_warp <= tec.SMEM_BLOCK_MAX)
-    # no other warp count puts more traces on an SM
-    on_sm = tec.SMEM_SM // (smem + tec.SMEM_BLOCK_RESERVED) * warps
-    for w in range(1, tec.MAX_WARPS + 1):
-        other = tec.TABLE_BYTES + w * per_warp
+    one_trace = tec.TABLE_BYTES + tec.TRACE_FIXED_BYTES + tec.rows_bytes(NS)
+    assert rows_shared == (one_trace <= tec.SMEM_BLOCK_MAX)
+    # no other trace count puts more traces on an SM
+    on_sm = tec.SMEM_SM // (smem + tec.SMEM_BLOCK_RESERVED) * traces
+    for w in range(1, tec.MAX_TRACES + 1):
+        other = tec.TABLE_BYTES + w * per_trace
         if other <= tec.SMEM_BLOCK_MAX:
             assert tec.SMEM_SM // (other + tec.SMEM_BLOCK_RESERVED) * w <= on_sm
 
@@ -109,7 +111,72 @@ def test_est_launch_plan_takes_both_routes():
     assert tec.est_launch_plan(2108)[1] is True
     assert tec.est_launch_plan(4096)[1] is True
     assert tec.est_launch_plan(30000)[1] is False
-    assert tec.WARP_FIXED_BYTES == 29120 and tec.TABLE_BYTES == 18432
+    assert tec.TRACE_FIXED_BYTES == 34480 and tec.TABLE_BYTES == 18432
+    # the card tests' cases on the two sides of the rows' budget
+    assert tec.est_launch_plan(EST_ROWS_SHARED_NS)[1] is True
+    assert tec.est_launch_plan(EST_ROWS_SHARED_NS + 1)[1] is False
+
+
+# the slice scope's NS, the archive cell's ~9,900 slots (rows in shared
+# memory, one trace a block) and a slot table only global scratch holds
+@pytest.mark.parametrize("NS, rows_shared", [
+    (64, True), (2108, True), (9900, True), (30000, False)])
+def test_est_stage_warps_and_rings_fit_a_block(NS, rows_shared):
+    traces, shared, smem = tec.est_launch_plan(NS)
+    assert shared is rows_shared
+    assert smem <= tec.SMEM_BLOCK_MAX
+    # a trace's stage warps, and 64 registers a thread at most: the
+    # kernel's launch bounds are MAX_TRACES traces' warps
+    assert traces * tec.STAGE_WARPS * 32 <= tec.MAX_TRACES * \
+        tec.STAGE_WARPS * 32 == 1024
+    # the rings: rows -> mixer 32 B a bin, mixer -> APM and APM -> coder
+    # 4 B, the tiles' counts and two mbarriers a tile, under 6 KB a trace
+    rings = tec.TRACE_FIXED_BYTES - 32 * 16 - tec.N_CLS * 8 * 4 - \
+        -(-tec.N_CLS * tec.APM_HIST * tec.APM_CELLS * 2 // 16) * 16
+    assert rings == tec.RING_TILES * (32 * 40 + 3 * 4 + 3 * 2 * 8) < 6 * 1024
+    if NS == 9900:
+        assert traces == 1
+
+
+def test_est_launch_plan_keeps_traces_an_sm_at_slice_scope():
+    """At the slice scope's NS = 2,108 an SM holds four traces, as it did
+    with one warp a trace (two blocks of two, 110,400 B each)."""
+    traces, _, smem = tec.est_launch_plan(2108)
+    assert tec.SMEM_SM // (smem + tec.SMEM_BLOCK_RESERVED) * traces >= 4
+
+
+class _Trace:
+    """A Python-extracted trace's fields, as trace_records and slot_tables
+    read them."""
+
+    def __init__(self, rng, n, ns):
+        self.slots = rng.integers(0, ns, n)
+        self.bits = rng.integers(0, 2, n)
+        self.pcabs = rng.integers(0, 1 << 16, n)
+        self.limits = rng.integers(0x10, 0x100, ns).astype(np.int32)
+        self.cls = rng.integers(0, tec.N_CLS, ns).astype(np.int32)
+
+    def __len__(self):
+        return len(self.slots)
+
+
+def test_est_stage_traces_reads_zero_on_the_cpu():
+    """est_stage_traces (the traces the stage-warp kernel coded) is one of
+    spans.KEYS, and the CPU route, which runs the plain loop, counts none
+    of its traces there; the streams are the plain version's."""
+    from avrecode_tpu_torch import spans
+
+    assert "est_stage_traces" in spans.KEYS
+    rng = np.random.default_rng(25)
+    traces = [_Trace(rng, n, 40) for n in (70, 33, 1)]
+    stats = {}
+    with spans.call("est", stats):
+        streams = tec.encode_traces_est(traces, "cpu")
+    assert stats["est_traces"] == 3 and stats["est_launches"] == 1
+    assert stats["est_stage_traces"] == 0
+    S, T, NS = 3, 70, 40
+    prob = tec.from_numpy_traces(*tec.pack_rows(traces, S, T, NS), "cpu")
+    assert streams == tec.finalize_streams(*tec.est_encode_plain(*prob))
 
 
 _BUILD_STUB = r"""
